@@ -1,0 +1,59 @@
+"""ahocorasick_tpu_torch — the PyTorch and CUDA port of ahocorasick_tpu.
+
+Multi-pattern string search with the capabilities of the `aho-corasick`
+crate (BurntSushi/aho-corasick v1.1.3), on an NVIDIA GPU:
+
+  - Host-side trie + BFS failure-link construction compiles pattern sets
+    into flat int32 automaton tables (automata/; optional native C++
+    builder in csrc/acbuild.cc).
+  - The device engine is the exact bit-parallel shift-AND scan, one
+    haystack stream per CUDA thread, in two hand-written Hopper kernels
+    (csrc/bitap.cu; ops/bitap.py drives them).
+  - Standard / leftmost-first / leftmost-longest semantics, overlapping
+    search, anchored search, ASCII case folding, replacement and stream
+    search/replace all reproduce the reference's (pattern, start, end)
+    output exactly (semantics.py, oracle.py).
+
+The JAX package ``ahocorasick_tpu`` is the reference this port is held
+to; this package imports nothing from it and nothing from JAX.
+
+Quick start::
+
+    from ahocorasick_tpu_torch import AhoCorasick
+    ac = AhoCorasick(["apple", "maple", "Snapple"])          # on "cuda"
+    ac = AhoCorasick(["apple", "maple", "Snapple"], device="cpu")
+    for m in ac.find_iter("Nobody likes maple in their apple flavored Snapple."):
+        print(m.pattern, m.start, m.end)
+"""
+
+from . import transducer
+from .ahocorasick import AhoCorasick, AhoCorasickBuilder, AhoCorasickKind
+from .oracle import OverlappingState
+from .utils.errors import BuildError, MatchError
+from .utils.search import (
+    Anchored,
+    Input,
+    Match,
+    MatchKind,
+    Span,
+    StartKind,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AhoCorasick",
+    "AhoCorasickBuilder",
+    "AhoCorasickKind",
+    "Anchored",
+    "BuildError",
+    "Input",
+    "Match",
+    "MatchError",
+    "MatchKind",
+    "OverlappingState",
+    "Span",
+    "StartKind",
+    "transducer",
+    "__version__",
+]
