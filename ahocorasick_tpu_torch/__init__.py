@@ -6,9 +6,14 @@ crate (BurntSushi/aho-corasick v1.1.3), on an NVIDIA GPU:
   - Host-side trie + BFS failure-link construction compiles pattern sets
     into flat int32 automaton tables (automata/; optional native C++
     builder in csrc/acbuild.cc).
-  - The device engine is the exact bit-parallel shift-AND scan, one
-    haystack stream per CUDA thread, in two hand-written Hopper kernels
-    (csrc/bitap.cu; ops/bitap.py drives them).
+  - The device engines, routed as the JAX package routes them: the exact
+    bit-parallel shift-AND scan (ops/bitap.py, kernels G1/G2 in
+    csrc/bitap.cu), the staged prefix-flag + rescan engine for large
+    counts and extractions (ops/staged.py, G3/G4 in csrc/staged.cu) and
+    the bucketed fingerprint filter with on-device verification for large
+    pattern sets and fused extraction (ops/fingerprint.py, G5/G6 in
+    csrc/fingerprint.cu); one haystack stream per CUDA thread, all on the
+    shared shift-AND core (csrc/shift_and.cuh).
   - Standard / leftmost-first / leftmost-longest semantics, overlapping
     search, anchored search, ASCII case folding, replacement and stream
     search/replace all reproduce the reference's (pattern, start, end)

@@ -15,23 +15,28 @@ Architecture of the PyTorch port:
 
   - One host-side construction path (automata/noncontiguous.py) builds the
     automaton; a dense DFA table (automata/dfa.py) is compiled from it.
-  - Unanchored searches over a pattern set the exact bit-parallel engine
-    accepts (`BitapEngine.eligible`) run its shift-AND kernels on the
-    searcher's device (ops/bitap.py, CUDA kernels in csrc/bitap.cu); all
-    match semantics are O(#matches) post-filters (semantics.py). Other
-    sets take the native C++ walk (automata/native.py) or, for short
-    haystacks, the host scalar walk (ops/block_scan.py).
+  - Unanchored searches run on the searcher's device, routed as the JAX
+    facade routes them. Over a pattern set the exact bit-parallel engine
+    accepts (`BitapEngine.eligible`), extraction tries the fingerprint
+    fused extract (ops/fingerprint.py, when it verifies on the device),
+    then the staged extract (ops/staged.py, n >= STAGED_MIN), then the
+    single-pass bit-parallel extract (ops/bitap.py); counts try the staged
+    count, then the bit-parallel count. Larger sets go to the fingerprint
+    engine, and the native C++ walk (automata/native.py) serves what it
+    declines; short haystacks take the host scalar walk
+    (ops/block_scan.py). All match semantics are O(#matches) post-filters
+    (semantics.py).
   - Anchored searches and the leftmost+empty-pattern corner run the host
     oracle (oracle.py) — anchored walks are bounded by max_pattern_len
     transitions, so this is O(max_pattern_len) per search, not O(n).
 
 The searcher runs on ``device`` (a builder knob, default ``"cuda"``): the
 default raises when no CUDA device is present, and ``device="cpu"`` runs
-the kernels' plain PyTorch versions. The JAX package's filter engines
-(staged, fingerprint, cascade) and its device DFA scan are not ported yet;
-forcing one of them raises NotImplementedError. Every engine is exact, so
-routing their traffic to the bit-parallel engine or the native walk gives
-identical results.
+the kernels' plain PyTorch versions. The JAX package's cascade engine
+and its device DFA scan are not ported yet; forcing one of them raises
+NotImplementedError. Every engine is exact, so the traffic the JAX facade
+sends to the cascade engine (sets above CASCADE_MIN_PATTERNS) goes to the
+fingerprint engine or the native walk here, with identical results.
 
 Backend `kind` selection mirrors ahocorasick.rs:2213-2261; the kind
 controls which automaton backs the *host* walk paths: CONTIGUOUS_NFA
@@ -52,6 +57,8 @@ from .utils import log
 from .automata.dfa import build_dfa
 from .automata.noncontiguous import compile_nfa, patterns_to_bytes
 from .ops.bitap import BitapEngine
+from .ops.fingerprint import FingerprintEngine
+from .ops.staged import StagedEngine
 from .utils.errors import MatchError
 from .utils.search import (
     Anchored,
@@ -81,7 +88,6 @@ ENGINE_MODES = ("auto", "oracle", "device-only", "bitap", "fingerprint",
 UNPORTED_ENGINES = {
     "dfa-scan": "queue 1 item 9 (ops/block_scan.py DeviceAutomaton)",
     "device-only": "queue 1 item 9 (ops/block_scan.py DeviceAutomaton)",
-    "fingerprint": "queue 1 item 7 (ops/fingerprint.py)",
     "cascade": "queue 1 item 8 (ops/cascade.py)",
 }
 
@@ -174,6 +180,9 @@ class AhoCorasick:
         self._dfa = build_dfa(self._match_nfa)
         self._bitap: Optional[BitapEngine] = None
         self._bitap_checked = False
+        self._staged: Optional[StagedEngine] = None
+        self._fp: Optional[FingerprintEngine] = None
+        self._fp_checked = False
         self._pre = None
         self._pre_checked = False
         self._dense_depth = builder._dense_depth
@@ -271,7 +280,10 @@ class AhoCorasick:
     def _bitap_engine(self) -> Optional[BitapEngine]:
         """The bit-parallel device engine (ops/bitap.py), or None when the
         pattern set is out of its bounds (empty patterns, > 2048 total
-        pattern bytes, a pattern longer than 2048 bytes)."""
+        pattern bytes, a pattern longer than 2048 bytes) or the mode
+        forces another engine."""
+        if self._engine_mode == "fingerprint":
+            return None
         if not self._bitap_checked:
             self._bitap_checked = True
             if BitapEngine.eligible(self._patterns):
@@ -285,8 +297,58 @@ class AhoCorasick:
                     self._bitap.tables.pad_byte,
                 )
             else:
-                log.debug("bitap ineligible; native walk")
+                log.debug("bitap ineligible; filter engines or native walk")
         return self._bitap
+
+    def _staged_engine(self, n: int) -> Optional[StagedEngine]:
+        """Two-stage fingerprint-prefilter engine (ops/staged.py) for
+        haystacks of at least STAGED_MIN bytes, or None when ineligible."""
+        if self._engine_mode not in ("auto", "bitap"):
+            return None
+        if not StagedEngine.eligible(
+            self._patterns, n, self._case_insensitive
+        ):
+            return None
+        if self._staged is None:
+            self._staged = StagedEngine(
+                self._patterns, self._case_insensitive, self._torch_device
+            )
+            log.debug(
+                "staged engine: Kf=%d fingerprint limbs vs K=%d full",
+                self._staged.fp.k, self._staged.full.k,
+            )
+        return self._staged
+
+    def _fingerprint_engine(self, n: int) -> Optional[FingerprintEngine]:
+        """Bucketed fingerprint filter + exact verification
+        (ops/fingerprint.py). None when ineligible, below the device
+        threshold, or previously found filter-hostile (candidate-dense
+        input; the native walk is then faster). Its calls return None on
+        filter-hostile input. The JAX facade offers its cascade engine
+        first above CASCADE_MIN_PATTERNS patterns; that engine is not
+        ported yet, so this one serves every size here."""
+        forced = self._engine_mode == "fingerprint"
+        if self._engine_mode not in ("auto", "fingerprint"):
+            return None
+        if not forced and n < self._device_threshold:
+            return None
+        if not self._fp_checked:
+            self._fp_checked = True
+            if FingerprintEngine.eligible(
+                self._patterns, self._case_insensitive
+            ):
+                self._fp = FingerprintEngine(
+                    self._patterns, self._case_insensitive,
+                    self._torch_device,
+                )
+                log.debug(
+                    "fingerprint engine: %d buckets, K=%d limbs, pad=%r",
+                    self._fp.tables.num_buckets, self._fp.tables.k,
+                    self._fp.tables.pad_byte,
+                )
+        if self._fp is not None and self._fp.hostile and not forced:
+            return None
+        return self._fp
 
     def _oracle_automaton(self):
         """The automaton backing host walk paths, per the reported kind:
@@ -352,24 +414,46 @@ class AhoCorasick:
     def _match_set(self, input: Input) -> semantics.MatchSet:
         """Full overlapping match set of input's span.
 
-        Uses the blocked device scan for large spans; below
-        `device_threshold` a host scalar walk over the same dense table is
-        faster than a device dispatch.
+        Device engines serve spans of at least `device_threshold` bytes, in
+        the JAX facade's order; below it a host walk over the dense table
+        is faster than a device dispatch.
         """
         hs = input.haystack[input.start:input.end]
+
+        def match_set(pids, ends):
+            starts = ends - self._dfa.pattern_lens[pids].astype(np.int64)
+            return semantics.MatchSet(pids, starts, ends, input.start)
+
         bitap = self._bitap_engine()
         if bitap is not None and (
             len(hs) >= self._device_threshold
             or self._engine_mode == "bitap"
         ):
-            # The JAX package first offers such calls to its fingerprint
-            # fused extract and staged extract; neither is ported yet and
-            # both are exact, so the bit-parallel extract serves them all.
-            pids, ends = bitap.match_pairs(hs)
-            starts = ends - self._dfa.pattern_lens[pids].astype(np.int64)
-            return semantics.MatchSet(pids, starts, ends, input.start)
-        # Pattern set beyond the bit-parallel engine's bounds, or a short
-        # haystack: the native sequential DFA walk.
+            # Extraction routing, as in the JAX facade: the fingerprint
+            # fused extract (a 1-bit candidate bitmap + device verify),
+            # then the staged extract (end words for flagged streams
+            # only), then the single-pass bit-parallel extract, the
+            # always-eligible floor. Every engine is exact; earlier ones
+            # decline (None) on hostile inputs or ineligible sets.
+            if self._engine_mode != "bitap":
+                fp = self._fingerprint_engine(len(hs))
+                if fp is not None and fp.dv is not None:
+                    got = fp.match_pairs(hs)
+                    if got is not None:
+                        return match_set(*got)
+                staged = self._staged_engine(len(hs))
+                if staged is not None:
+                    got = staged.match_pairs(hs)
+                    if got is not None:
+                        return match_set(*got)
+            return match_set(*bitap.match_pairs(hs))
+        fp = self._fingerprint_engine(len(hs))
+        if fp is not None:
+            got = fp.match_pairs(hs)
+            if got is not None:  # None: filter-hostile input, fall back
+                return match_set(*got)
+        # Pattern set beyond the device engines' bounds, a filter-hostile
+        # input or a short haystack: the native sequential DFA walk.
         from .automata import native as _native
 
         got = _native.dfa_positions(self._dfa, hs)
@@ -539,9 +623,17 @@ class AhoCorasick:
         hs = input.haystack[input.start:input.end]
         bitap = self._bitap_engine()
         if bitap is not None:
-            # The JAX package's staged count (n >= 4 MiB) is not ported
-            # yet; it is exact, so the bit-parallel count serves it.
+            staged = self._staged_engine(len(hs))
+            if staged is not None:
+                got = staged.count_matches(hs)
+                if got is not None:  # None: candidate overflow, rescan
+                    return got
             return bitap.count_matches(hs)
+        fp = self._fingerprint_engine(len(hs))
+        if fp is not None:
+            got = fp.count_matches(hs)
+            if got is not None:  # None: filter-hostile input, fall back
+                return got
         from .automata import native as _native
 
         got = _native.dfa_count(self._dfa, hs)
@@ -745,13 +837,14 @@ class AhoCorasickBuilder:
     def engine(self, mode: str) -> "AhoCorasickBuilder":
         """Extension: engine preference.
 
-        'auto' (bit-parallel kernels when the set is eligible, else the
+        'auto' (the device engines in the JAX facade's order, else the
         native walk; host walk for tiny haystacks), 'bitap' (force the
-        bit-parallel kernels even for tiny haystacks), 'oracle' (host
-        reference walk) — the analog of the reference's test-only backend
-        forcing knobs (packed/api.rs:137-188). The JAX package's
-        'device-only', 'fingerprint', 'cascade' and 'dfa-scan' modes are
-        not ported yet and raise NotImplementedError."""
+        bit-parallel kernels even for tiny haystacks), 'fingerprint'
+        (force the fingerprint engine), 'oracle' (host reference walk) —
+        the analog of the reference's test-only backend forcing knobs
+        (packed/api.rs:137-188). The JAX package's 'device-only',
+        'cascade' and 'dfa-scan' modes are not ported yet and raise
+        NotImplementedError."""
         _check_engine(mode)
         self._engine = mode
         return self

@@ -32,15 +32,11 @@
 //     body[w][s]), so a warp's 32 loads of one word row are one coalesced
 //     128-byte transaction, and the end words [.., t, k, lane] are written
 //     lane-fastest, coalesced too.
-//   - State is uint32_t, so `>> 31` is a logical shift. For K <= 64 it
-//     lives in registers (template buckets over K, fully unrolled limb
-//     loop) and lo/hi sit in shared memory: 16 consecutive words per limb
-//     fall in 16 distinct banks and equal addresses broadcast, so the
-//     per-byte lookups are free of bank conflicts. Decollided chain
-//     packing can spread an eligible set over up to 2048 limbs (256
-//     three-byte patterns give K = 229), so beyond 64 limbs the state
-//     goes to a global scratch [K, S] (coalesced across lanes) and the
-//     tables are read through the read-only cache.
+//   - The shift-AND step, the register buckets over K, the shared-memory
+//     nybble tables and the spill path beyond 64 limbs are the shared
+//     core in shift_and.cuh. Decollided chain packing can spread an
+//     eligible set over up to 2048 limbs (256 three-byte patterns give
+//     K = 229), which the spill path serves.
 //   - Known weakness: the JAX layout gives 32 tiles x 1024 = 32,768
 //     streams at 64 MiB, i.e. 32,768 threads on a card with 270,336
 //     resident thread slots (12% occupancy); the kernel is latency-bound
@@ -50,15 +46,11 @@
 // allocates nothing, and returns cudaGetLastError() so the caller can
 // raise on a refused launch.
 
-#include <cstddef>
-#include <cstdint>
-
-#include <cuda_runtime.h>
+#include "shift_and.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;   // threads (= streams) per block
-constexpr int kLanes = 1024;   // streams per [8, 128] tile
+using namespace shift_and;
 
 struct Params {
   const uint32_t* lo;     // [K, 16]
@@ -79,108 +71,22 @@ struct Params {
   long long n;
 };
 
-// Limb state and per-limb constants: registers for KR > 0 (K <= KR),
-// global memory for KR == 0.
-template <int KR>
-struct Limbs {
-  uint32_t m[KR > 0 ? KR : 1];
-  uint32_t sm[KR > 0 ? KR : 1];
-  uint32_t em[KR > 0 ? KR : 1];
-  uint32_t* g;
-  const uint32_t* gsm;
-  const uint32_t* gem;
-  int S;
-
-  __device__ __forceinline__ uint32_t& at(int k) {
-    if constexpr (KR > 0) {
-      return m[k];
-    } else {
-      return g[static_cast<size_t>(k) * S];
-    }
-  }
-  __device__ __forceinline__ uint32_t start(int k) const {
-    if constexpr (KR > 0) {
-      return sm[k];
-    } else {
-      return __ldg(gsm + k);
-    }
-  }
-  __device__ __forceinline__ uint32_t end(int k) const {
-    if constexpr (KR > 0) {
-      return em[k];
-    } else {
-      return __ldg(gem + k);
-    }
-  }
-};
-
-// Limb loop: fully unrolled over the bucket KR with a guard, or a plain
-// run-time loop on the spill path.
-#define FOR_LIMBS(k)                                          \
-  _Pragma("unroll") for (int k = 0; k < (KR > 0 ? KR : K); ++k) \
-      if (KR == 0 || k < K)
-
-template <int KR>
-__device__ __forceinline__ uint32_t charmask(const uint32_t* LO,
-                                             const uint32_t* HI, int k,
-                                             uint32_t b) {
-  if constexpr (KR > 0) {
-    return LO[k * 16 + (b & 15u)] & HI[k * 16 + (b >> 4)];
-  } else {
-    return __ldg(LO + k * 16 + (b & 15u)) & __ldg(HI + k * 16 + (b >> 4));
-  }
-}
-
 template <int KR, bool BAKED, bool EXTRACT>
 __global__ void __launch_bounds__(kThreads) scan_kernel(Params p) {
   extern __shared__ uint32_t tab[];  // lo [K*16] then hi [K*16]
   const int K = p.K;
-  const uint32_t* LO = p.lo;
-  const uint32_t* HI = p.hi;
-  if constexpr (KR > 0) {
-    for (int i = threadIdx.x; i < K * 16; i += kThreads) {
-      tab[i] = p.lo[i];
-      tab[K * 16 + i] = p.hi[i];
-    }
-    __syncthreads();
-    LO = tab;
-    HI = tab + K * 16;
-  }
+  const uint32_t* LO;
+  const uint32_t* HI;
+  load_tables<KR>(p.lo, p.hi, K, tab, LO, HI);
   const int s = blockIdx.x * kThreads + threadIdx.x;
   if (s >= p.S) return;
 
   Limbs<KR> st;
-  st.g = p.state + s;
-  st.gsm = p.sm;
-  st.gem = p.em;
-  st.S = p.S;
-  FOR_LIMBS(k) {
-    st.at(k) = 0u;
-    if constexpr (KR > 0) {
-      st.sm[k] = p.sm[k];
-      st.em[k] = p.em[k];
-    }
-  }
-
+  init<KR>(st, p.sm, p.em, p.state, s, p.S, K);
   // Warm-up over the halo (the tail of stream s-1): no hits counted.
-  for (int w = 0; w < p.Hw; ++w) {
-    const uint32_t word = p.halo[static_cast<size_t>(w) * p.S + s];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const uint32_t b = (word >> (8 * jj)) & 255u;
-      uint32_t carry = 0u;
-      FOR_LIMBS(k) {
-        const uint32_t old = st.at(k);
-        st.at(k) = ((old << 1) | carry | st.start(k)) &
-                   charmask<KR>(LO, HI, k, b);
-        carry = old >> 31;
-      }
-    }
-  }
+  walk_halo<KR>(st, LO, HI, K, p.halo, p.Hw, s, p.S, [](int, uint32_t) {});
   // Stream 0's halo wraps around to the end of the buffer: no history.
-  if (s == 0) {
-    FOR_LIMBS(k) { st.at(k) = 0u; }
-  }
+  if (s == 0) reset<KR>(st, K);
 
   const long long L = 4LL * p.Wb;
   const long long pos0 = static_cast<long long>(s) * L;
@@ -191,7 +97,6 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Params p) {
     const uint32_t word = p.body[static_cast<size_t>(w) * p.S + s];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
-      const uint32_t b = (word >> (8 * jj)) & 255u;
       const long long t = 4LL * w + jj;
       bool ok = true;
       if constexpr (!BAKED) {
@@ -201,65 +106,38 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Params p) {
       if constexpr (EXTRACT) {
         wrow = p.words + ((tile * L + t) * p.kdim) * kLanes + lane;
       }
-      uint32_t carry = 0u;
       int slot = 0;
-      FOR_LIMBS(k) {
-        const uint32_t old = st.at(k);
-        const uint32_t nm = ((old << 1) | carry | st.start(k)) &
-                            charmask<KR>(LO, HI, k, b);
-        carry = old >> 31;
-        st.at(k) = nm;
-        uint32_t h = nm & st.end(k);
-        if constexpr (!BAKED) {
-          h = ok ? h : 0u;
-        }
-        cnt += __popc(h);
-        if constexpr (EXTRACT) {
-          if constexpr (BAKED) {
-            if (st.end(k) != 0u) {
-              wrow[static_cast<size_t>(slot) * kLanes] =
-                  static_cast<int32_t>(h);
-              ++slot;
-            }
-          } else {
-            wrow[static_cast<size_t>(k) * kLanes] = static_cast<int32_t>(h);
-          }
-        }
-      }
+      step<KR>(st, LO, HI, K, (word >> (8 * jj)) & 255u,
+               [&](int k, uint32_t nm) {
+                 uint32_t h = nm & st.end(k);
+                 if constexpr (!BAKED) {
+                   h = ok ? h : 0u;
+                 }
+                 cnt += __popc(h);
+                 if constexpr (EXTRACT) {
+                   if constexpr (BAKED) {
+                     if (st.end(k) != 0u) {
+                       wrow[static_cast<size_t>(slot) * kLanes] =
+                           static_cast<int32_t>(h);
+                       ++slot;
+                     }
+                   } else {
+                     wrow[static_cast<size_t>(k) * kLanes] =
+                         static_cast<int32_t>(h);
+                   }
+                 }
+               });
     }
   }
   p.counts[s] = cnt;
 }
 
-template <int KR, bool BAKED, bool EXTRACT>
-void launch_bucket(const Params& p, cudaStream_t stream) {
-  const int blocks = (p.S + kThreads - 1) / kThreads;
-  const size_t shmem =
-      KR > 0 ? static_cast<size_t>(p.K) * 32 * sizeof(uint32_t) : 0;
-  scan_kernel<KR, BAKED, EXTRACT><<<blocks, kThreads, shmem, stream>>>(p);
-}
-
 template <bool BAKED, bool EXTRACT>
 void launch(const Params& p, cudaStream_t stream) {
-  if (p.K <= 1) {
-    launch_bucket<1, BAKED, EXTRACT>(p, stream);
-  } else if (p.K <= 2) {
-    launch_bucket<2, BAKED, EXTRACT>(p, stream);
-  } else if (p.K <= 3) {
-    launch_bucket<3, BAKED, EXTRACT>(p, stream);
-  } else if (p.K <= 4) {
-    launch_bucket<4, BAKED, EXTRACT>(p, stream);
-  } else if (p.K <= 8) {
-    launch_bucket<8, BAKED, EXTRACT>(p, stream);
-  } else if (p.K <= 16) {
-    launch_bucket<16, BAKED, EXTRACT>(p, stream);
-  } else if (p.K <= 32) {
-    launch_bucket<32, BAKED, EXTRACT>(p, stream);
-  } else if (p.K <= 64) {
-    launch_bucket<64, BAKED, EXTRACT>(p, stream);
-  } else {
-    launch_bucket<0, BAKED, EXTRACT>(p, stream);
-  }
+  SHIFT_AND_FOR_BUCKET(
+      p.K, scan_kernel<KR, BAKED, EXTRACT>
+               <<<blocks_for(p.S), kThreads, shmem_bytes(KR, p.K), stream>>>(
+                   p));
 }
 
 Params make_params(const void* lo, const void* hi, const void* sm,

@@ -1,5 +1,6 @@
 """Wrappers of the Hopper shift-AND kernels (csrc/bitap.cu), with their
-plain PyTorch versions.
+plain PyTorch versions, and the plain shift-AND core the other kernel
+modules (``staged_kernels``, ``fingerprint_kernels``) share.
 
 ``bitap_scan_generic`` runs kernel G1 (the port of the JAX package's
 ``ops/bitap.py::_make_kernel``): tables at run time, positions masked to a
@@ -22,40 +23,25 @@ the main path went through.
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .. import _build
+from .._build import I, LL, P
 
 # Launches of each kernel since the last reset (plain versions not counted).
 generic_launches = 0
 baked_launches = 0
 
-# Limbs held in registers by the kernel; beyond this the state spills to a
+# Limbs held in registers by the kernels; beyond this the state spills to a
 # global scratch that the wrapper allocates.
 MAX_REG_LIMBS = 64
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "bitap.cu",
-)
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_lib_path: Optional[str] = None
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
+LIBRARY = _build.CudaLibrary("bitap.cu", {
+    "bitap_generic_scan": (P, P, P, P, I, P, I, P, I, I, LL, LL, P, P, P, P),
+    "bitap_baked_scan": (P, P, P, P, I, I, P, I, P, I, I, P, P, P, P),
+})
 
 
 def reset_counts() -> None:
@@ -64,48 +50,11 @@ def reset_counts() -> None:
     baked_launches = 0
 
 
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return found
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (first call only) and load the kernels' shared library."""
-    global _lib, _lib_path
-    with _lock:
-        if _lib is not None:
-            return _lib
-        so = _build.build_shared(_SRC, "bitap", [_nvcc()] + NVCC_FLAGS)
-        lib = ctypes.CDLL(so)
-        lib.bitap_generic_scan.restype = _I
-        lib.bitap_generic_scan.argtypes = [
-            _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _LL, _LL, _P, _P, _P, _P,
-        ]
-        lib.bitap_baked_scan.restype = _I
-        lib.bitap_baked_scan.argtypes = [
-            _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P,
-        ]
-        _lib, _lib_path = lib, so
-        return lib
-
-
-def build_report() -> str:
-    """The compiler's output for the loaded library (ptxas -v lines)."""
-    load_library()
-    return _build.build_log(_lib_path)
-
-
 # ---------------------------------------------------------------------------
-# Argument checks
+# Argument checks and launch plumbing (shared with the other kernel modules)
 # ---------------------------------------------------------------------------
-def _check(lo, hi, sm, em, halo, body) -> Tuple[int, int, int, int]:
-    """Validate the scan inputs; returns (K, Hw, Wb, tiles)."""
+def check_scan_args(lo, hi, sm, em, halo, body) -> Tuple[int, int, int, int]:
+    """Validate the inputs of a shift-AND scan; returns (K, Hw, Wb, tiles)."""
     dev = body.device
     for name, t in (("lo", lo), ("hi", hi), ("start", sm), ("end", em),
                     ("halo", halo), ("body", body)):
@@ -127,37 +76,39 @@ def _check(lo, hi, sm, em, halo, body) -> Tuple[int, int, int, int]:
     if halo.dim() != 3 or halo.shape[1:] != body.shape[1:]:
         raise ValueError(f"halo must be [Hw, {body.shape[1]}, 128], got "
                          f"{tuple(halo.shape)}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     return K, halo.shape[0], body.shape[0], body.shape[1] // 8
 
 
-def _outputs(dev: torch.device, K: int, kdim: int, Wb: int, tiles: int,
-             extract: bool):
-    """(counts [tiles,8,128], words [tiles,L,kdim,8,128] or None, limb
-    state scratch [K*S] for K > MAX_REG_LIMBS or None), uninitialised:
-    the kernel writes every element."""
-    S = tiles * 1024
-    counts = torch.empty((tiles, 8, 128), dtype=torch.int32, device=dev)
-    words = (torch.empty((tiles, 4 * Wb, kdim, 8, 128), dtype=torch.int32,
-                         device=dev) if extract else None)
-    state = (torch.empty(K * S, dtype=torch.int32, device=dev)
-             if K > MAX_REG_LIMBS else None)
-    return counts, words, state
+def spill_state(dev: torch.device, K: int, S: int) -> Optional[torch.Tensor]:
+    """Limb-state scratch [K*S] for K > MAX_REG_LIMBS, else None."""
+    return (torch.empty(K * S, dtype=torch.int32, device=dev)
+            if K > MAX_REG_LIMBS else None)
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _stream_ptr(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
+def launch(dev: torch.device, fn, name: str, *args) -> None:
+    """Call a kernel's C entry point on the current stream of ``dev`` and
+    raise if the launch was refused."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: CUDA error {err} "
-            f"({torch.cuda.get_device_name()})"
-        )
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({torch.cuda.get_device_name(dev)})")
+
+
+def _outputs(dev: torch.device, kdim: int, Wb: int, tiles: int,
+             extract: bool):
+    """(counts [tiles,8,128], words [tiles,L,kdim,8,128] or None),
+    uninitialised: the kernel writes every element."""
+    counts = torch.empty((tiles, 8, 128), dtype=torch.int32, device=dev)
+    words = (torch.empty((tiles, 4 * Wb, kdim, 8, 128), dtype=torch.int32,
+                         device=dev) if extract else None)
+    return counts, words
 
 
 # ---------------------------------------------------------------------------
@@ -167,23 +118,18 @@ def bitap_scan_generic(lo, hi, sm, em, halo, body, n0: int, n: int,
                        extract: bool):
     """(counts [tiles,8,128], words [tiles,L,K,8,128] or None)."""
     global generic_launches
-    K, Hw, Wb, tiles = _check(lo, hi, sm, em, halo, body)
+    K, Hw, Wb, tiles = check_scan_args(lo, hi, sm, em, halo, body)
     dev = body.device
     if dev.type == "cpu":
         return bitap_scan_generic_plain(lo, hi, sm, em, halo, body, n0, n,
                                         extract)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    lib = load_library()
+    lib = LIBRARY.load()
     S = tiles * 1024
-    counts, words, state = _outputs(dev, K, K, Wb, tiles, extract)
-    with torch.cuda.device(dev):
-        err = lib.bitap_generic_scan(
-            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
-            halo.data_ptr(), Hw, body.data_ptr(), Wb, S, n0, n,
-            counts.data_ptr(), _ptr(words), _ptr(state), _stream_ptr(dev),
-        )
-    _raise_on(err, "bitap_generic_scan")
+    counts, words = _outputs(dev, K, Wb, tiles, extract)
+    launch(dev, lib.bitap_generic_scan, "bitap_generic_scan",
+           lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
+           halo.data_ptr(), Hw, body.data_ptr(), Wb, S, n0, n,
+           counts.data_ptr(), ptr(words), ptr(spill_state(dev, K, S)))
     generic_launches += 1
     return counts, words
 
@@ -191,8 +137,8 @@ def bitap_scan_generic(lo, hi, sm, em, halo, body, n0: int, n: int,
 def bitap_scan_generic_plain(lo, hi, sm, em, halo, body, n0: int, n: int,
                              extract: bool):
     """Plain PyTorch version of G1 (same outputs, any device)."""
-    return _scan_plain(lo, hi, sm, em, halo, body, (n0, n),
-                       list(range(lo.shape[0])), extract)
+    return scan_plain(lo, hi, sm, em, halo, body, (n0, n),
+                      list(range(lo.shape[0])), extract)
 
 
 # ---------------------------------------------------------------------------
@@ -204,26 +150,21 @@ def bitap_scan_baked(lo, hi, sm, em, end_limbs: Sequence[int], halo, body,
     ``Ke = len(end_limbs)``; ``end_limbs`` lists the limbs whose end mask
     is nonzero, in order (the word axis follows it)."""
     global baked_launches
-    K, Hw, Wb, tiles = _check(lo, hi, sm, em, halo, body)
+    K, Hw, Wb, tiles = check_scan_args(lo, hi, sm, em, halo, body)
     dev = body.device
     if dev.type == "cpu":
         return bitap_scan_baked_plain(lo, hi, sm, em, end_limbs, halo, body,
                                       extract)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     Ke = len(end_limbs)
     if Ke < 1:
         raise ValueError("a baked scan needs at least one end-bearing limb")
-    lib = load_library()
+    lib = LIBRARY.load()
     S = tiles * 1024
-    counts, words, state = _outputs(dev, K, Ke, Wb, tiles, extract)
-    with torch.cuda.device(dev):
-        err = lib.bitap_baked_scan(
-            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
-            Ke, halo.data_ptr(), Hw, body.data_ptr(), Wb, S,
-            counts.data_ptr(), _ptr(words), _ptr(state), _stream_ptr(dev),
-        )
-    _raise_on(err, "bitap_baked_scan")
+    counts, words = _outputs(dev, Ke, Wb, tiles, extract)
+    launch(dev, lib.bitap_baked_scan, "bitap_baked_scan",
+           lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
+           Ke, halo.data_ptr(), Hw, body.data_ptr(), Wb, S,
+           counts.data_ptr(), ptr(words), ptr(spill_state(dev, K, S)))
     baked_launches += 1
     return counts, words
 
@@ -231,23 +172,23 @@ def bitap_scan_baked(lo, hi, sm, em, end_limbs: Sequence[int], halo, body,
 def bitap_scan_baked_plain(lo, hi, sm, em, end_limbs: Sequence[int], halo,
                            body, extract: bool):
     """Plain PyTorch version of G2 (same outputs, any device)."""
-    return _scan_plain(lo, hi, sm, em, halo, body, None, list(end_limbs),
-                       extract)
+    return scan_plain(lo, hi, sm, em, halo, body, None, list(end_limbs),
+                      extract)
 
 
 # ---------------------------------------------------------------------------
-# Plain version shared by both kernels
+# The plain shift-AND core, vectorised over streams and limbs
 # ---------------------------------------------------------------------------
 _M32 = 0xFFFFFFFF
 
 
-def _u32(x: torch.Tensor) -> torch.Tensor:
+def u32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns as unsigned values in int64 (torch has no
     uint32 shifts or adds, and `>>` on int32 is arithmetic)."""
     return x.to(torch.int64) & _M32
 
 
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
+def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Popcount of int64 values below 2^32 (torch has no popcount op)."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
@@ -255,60 +196,91 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & _M32) >> 24
 
 
-def _to_i32(x: torch.Tensor) -> torch.Tensor:
+def to_i32(x: torch.Tensor) -> torch.Tensor:
     """Unsigned 32-bit values (int64) back to int32 bit patterns."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def _scan_plain(lo, hi, sm, em, halo, body, window, out_limbs, extract):
-    """Vectorised over streams and limbs, looping over bytes."""
-    Hw, R8, _ = halo.shape
-    Wb = body.shape[0]
-    S = R8 * 128
-    tiles = R8 // 8
-    L = 4 * Wb
-    K = lo.shape[0]
-    dev = body.device
-    lo64, hi64 = _u32(lo), _u32(hi)
-    sm64 = _u32(sm)[:, None]
-    em64 = _u32(em)[:, None]
-    halo64 = _u32(halo.reshape(Hw, S))
-    body64 = _u32(body.reshape(Wb, S))
-    m = torch.zeros((K, S), dtype=torch.int64, device=dev)
+def or_limbs(h: torch.Tensor) -> torch.Tensor:
+    """OR over the limb axis of [K, S] int64 words (torch has no OR
+    reduction)."""
+    out = h[0]
+    for k in range(1, h.shape[0]):
+        out = out | h[k]
+    return out
 
-    def advance(m, b):
-        cm = lo64[:, b & 15] & hi64[:, b >> 4]  # [K, S]
+
+class PlainScan:
+    """The state of a plain scan: tables as unsigned int64 and the limb
+    state ``m [K, S]``. ``step`` advances every stream by one byte,
+    ``halo`` walks the warm-up words, ``bytes`` yields the body's bytes in
+    order with their in-stream position."""
+
+    def __init__(self, lo, hi, sm, em, S: int):
+        self.lo, self.hi = u32(lo), u32(hi)
+        self.sm = u32(sm)[:, None]
+        self.em = u32(em)[:, None]
+        self.m = torch.zeros((lo.shape[0], S), dtype=torch.int64,
+                             device=lo.device)
+
+    def step(self, b: torch.Tensor) -> torch.Tensor:
+        m = self.m
+        cm = self.lo[:, b & 15] & self.hi[:, b >> 4]  # [K, S]
         carry = torch.zeros_like(m)
         carry[1:] = m[:-1] >> 31
-        return (((m << 1) & _M32) | carry | sm64) & cm
+        self.m = (((m << 1) & _M32) | carry | self.sm) & cm
+        return self.m
 
-    for w in range(Hw):
-        word = halo64[w]
-        for jj in range(4):
-            m = advance(m, (word >> (8 * jj)) & 255)
-    m[:, 0] = 0  # stream 0's halo wraps around the buffer end
+    @staticmethod
+    def bytes(words: torch.Tensor):
+        """(t, byte vector [S]) for the 4 * W bytes of words [W, ...]."""
+        w64 = u32(words.reshape(words.shape[0], -1))
+        for w in range(w64.shape[0]):
+            for jj in range(4):
+                yield 4 * w + jj, (w64[w] >> (8 * jj)) & 255
 
-    pos0 = torch.arange(S, dtype=torch.int64, device=dev) * L
+    def halo(self, halo: torch.Tensor, on_step=None) -> None:
+        for _, b in self.bytes(halo):
+            m = self.step(b)
+            if on_step is not None:
+                on_step(m)
+
+
+def scan_plain(lo, hi, sm, em, halo, body, window, out_limbs, extract,
+               sid=None):
+    """Plain counts and end words of G1, G2 and the staged engine's G4.
+
+    ``window`` masks positions to [n0, n) (None: no mask). ``sid`` [S]
+    gives each lane's original stream (G4; -1 marks a pad lane, which
+    counts nothing); None means lane s scans stream s."""
+    S = body.shape[1] * 128
+    tiles = S // 1024
+    L = 4 * body.shape[0]
+    dev = body.device
+    ps = PlainScan(lo, hi, sm, em, S)
+    ps.halo(halo)
+    if sid is None:
+        sid = torch.arange(S, dtype=torch.int64, device=dev)
+    else:
+        sid = sid.reshape(S).to(torch.int64)
+    ps.m[:, sid == 0] = 0  # stream 0's halo wraps around the buffer end
+    pos0 = sid * L
+    live = sid >= 0
     counts = torch.zeros(S, dtype=torch.int64, device=dev)
     limbs = torch.as_tensor(out_limbs, dtype=torch.int64, device=dev)
     words = (torch.empty((L, len(out_limbs), S), dtype=torch.int64,
                          device=dev) if extract else None)
-    for w in range(Wb):
-        word = body64[w]
-        for jj in range(4):
-            t = 4 * w + jj
-            m = advance(m, (word >> (8 * jj)) & 255)
-            h = m & em64
-            if window is not None:
-                pos = pos0 + t
-                ok = (pos >= window[0]) & (pos < window[1])
-                h = h * ok
-            counts += _popcount32(h).sum(0)
-            if extract:
-                words[t] = h[limbs]
+    for t, b in ps.bytes(body):
+        h = ps.step(b) & ps.em
+        if window is not None:
+            pos = pos0 + t
+            h = h * (live & (pos >= window[0]) & (pos < window[1]))
+        counts += popcount32(h).sum(0)
+        if extract:
+            words[t] = h[limbs]
     counts32 = counts.to(torch.int32).reshape(tiles, 8, 128)
     if not extract:
         return counts32, None
     kd = len(out_limbs)
     words = words.reshape(L, kd, tiles, 1024).permute(2, 0, 1, 3)
-    return counts32, _to_i32(words.reshape(tiles, L, kd, 8, 128))
+    return counts32, to_i32(words.reshape(tiles, L, kd, 8, 128))

@@ -1,0 +1,258 @@
+"""Two-stage staged count and extraction: prefix-chain flags, then an exact
+rescan of the flagged streams.
+
+The PyTorch port of the JAX package's ``ops/staged.py``; host logic,
+thresholds and layouts are copied unchanged.
+
+Stage 1 — fingerprint flags (kernel G3, ``staged_kernels.staged_flags``).
+Each pattern contributes its first ``min(4, len)`` bytes as an
+exact-prefix chain; all fingerprints pack into ``Kf`` limbs (typically 1
+against the full set's K). One pass over the pad-byte padded haystack ORs
+fingerprint end hits per stream, including the halo warm-up, so a full
+match ending just inside a stream's countable region (whose fingerprint
+lands in the halo) still flags it. An absent fingerprint hit proves the
+stream has no full-match end: a match of pattern p ending at e contains
+p's fingerprint ending at e - len + f <= e, and >= e - (H - 1), so it lies
+inside the stream's scanned window (H >= max_pattern_len - 1 >= len - f).
+
+Stage 2 — exact rescan of candidates (kernel G4,
+``staged_kernels.staged_gathered``). The flagged streams are compacted
+(``select_nonzero_words``), their row-major body and halo rows gathered on
+the device (``index_select``) and transposed to the stream-major layout,
+and the full-K masked scan runs over them, each lane carrying its
+original stream id so position masking and counting are unchanged.
+Extraction also writes end words for the candidate streams only and
+decodes them with ``decode_match_words(..., stream_map=cand)``.
+
+Candidate overflow (more flagged streams than ``cap``) grows ``cap``;
+past the number of streams the engine returns None and the caller falls
+back to the single-pass bit-parallel engine.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import staged_kernels as _kernels
+from .bitap import (
+    LANES,
+    BitapEngine,
+    BitapTables,
+    _pow2,
+    _round_tiles,
+    decode_match_words,
+)
+from .compaction import select_nonzero_words
+
+# Streams shorter than the full engine's: smaller blocks keep the
+# per-stream candidate probability low on sparse inputs.
+STAGED_L = 512
+# Below this haystack size the single-pass engine wins (staging adds a
+# fixed two-kernel + gather overhead).
+STAGED_MIN = 1 << 22
+FINGERPRINT_BYTES = 4
+
+
+def _fingerprints(patterns: List[bytes]) -> List[bytes]:
+    return [p[:FINGERPRINT_BYTES] for p in patterns]
+
+
+class StagedHaystack:
+    """Device-resident staged-engine layout: upload + transpose once,
+    count many times (the production repeated-search path)."""
+
+    __slots__ = ("n", "L", "Lc", "tiles", "rows", "hrows", "halo_a",
+                 "body")
+
+    def __init__(self, n, L, Lc, tiles, rows, hrows, halo_a, body):
+        self.n = n
+        self.L = L
+        self.Lc = Lc
+        self.tiles = tiles
+        self.rows = rows        # [ns, Wb] int32 row-major (stage-2 gather)
+        self.hrows = hrows      # [ns, Hw] halo rows
+        self.halo_a = halo_a    # stream-major halo (stage-1)
+        self.body = body        # stream-major body (stage-1)
+
+
+def _staged_layouts(x32: torch.Tensor, L: int, tiles: int, H: int):
+    """(rows [ns, Wb], hrows [ns, Hw], halo [Hw, ns/128, 128],
+    body [Wb, ns/128, 128]) of the packed words ``x32``; halo row s holds
+    the H bytes before stream s (stream 0's wrap around the buffer)."""
+    ns = tiles * LANES
+    Wb = L // 4
+    Hw = H // 4
+    rows = x32.reshape(ns, Wb)
+    hrows = torch.roll(x32, Hw).reshape(ns, Wb)[:, :Hw].contiguous()
+    body = rows.T.reshape(Wb, ns // 128, 128).contiguous()
+    halo = hrows.T.reshape(Hw, ns // 128, 128).contiguous()
+    return rows, hrows, halo, body
+
+
+class StagedEngine:
+    """Count and extraction engine: fingerprint prefilter + exact
+    rescan, on ``device``."""
+
+    def __init__(self, patterns: List[bytes], case_insensitive: bool,
+                 device="cuda"):
+        self.patterns = patterns
+        self.device = torch.device(device)
+        self.full = BitapTables(patterns, case_insensitive)
+        self.fp = BitapTables(_fingerprints(patterns), case_insensitive)
+        h = max(self.full.max_pattern_len - 1, 1)
+        self.halo = max(_pow2(h), 4)
+        # Extraction caps persist per engine instance: settled once,
+        # repeated searches take the first cap that fits.
+        self._cap_s = 0
+        self._cap_w = 0
+        self._fp_args = None
+        self._full_args = None
+
+    @classmethod
+    def eligible(cls, patterns: List[bytes], n: int,
+                 case_insensitive: bool = False) -> bool:
+        if n < STAGED_MIN or not BitapEngine.eligible(patterns):
+            return False
+        fp = _fingerprints(patterns)
+        # Staging pays off when fingerprints are materially cheaper.
+        kf = (sum(len(p) for p in fp) + 31) // 32
+        k = (sum(len(p) for p in patterns) + 31) // 32
+        if kf * 2 > k:
+            return False
+        # Both stages run pad-padded (no position masking in stage 1).
+        tables = BitapTables(patterns, case_insensitive)
+        return tables.pad_byte is not None
+
+    def _layout(self, n: int) -> Tuple[int, int, int]:
+        L = max(self.halo, STAGED_L)
+        tiles = max(1, _round_tiles(-(-n // (LANES * L))))
+        Lc = min(L, 512)
+        return L, Lc, tiles
+
+    def _args(self):
+        if self._fp_args is None:
+            self._fp_args = self.fp.device_tensors(self.device)
+            self._full_args = self.full.device_tensors(self.device)
+        return self._fp_args, self._full_args
+
+    def prepare(self, hs: bytes) -> StagedHaystack:
+        """Upload a haystack into the device-resident staged layout."""
+        n = len(hs)
+        L, Lc, tiles = self._layout(max(n, 1))
+        ns = tiles * LANES
+        pad = self.full.pad_byte
+        assert pad is not None
+        buf = np.full(ns * L, pad, np.uint8)
+        buf[:n] = np.frombuffer(hs, np.uint8)
+        x32 = torch.from_numpy(buf.view(np.int32)).to(self.device)
+        rows, hrows, halo_a, body = _staged_layouts(x32, L, tiles, self.halo)
+        return StagedHaystack(n, L, Lc, tiles, rows, hrows, halo_a, body)
+
+    # ------------------------------------------------------------------
+    # The two stages
+    # ------------------------------------------------------------------
+    def flags(self, ph: StagedHaystack) -> torch.Tensor:
+        """Stage 1: per-stream flag words [tiles, 8, 128] (G3)."""
+        (lo, hi, sm, em), _ = self._args()
+        return _kernels.staged_flags(lo, hi, sm, em, ph.halo_a, ph.body)
+
+    def candidates(self, ph: StagedHaystack,
+                   cap: int) -> Tuple[int, torch.Tensor]:
+        """(number of flagged streams, cand [cap]): the first ``cap``
+        flagged stream ids in order, -1 past the count."""
+        fl = self.flags(ph).reshape(-1)
+        ncand, widx, _, live = select_nonzero_words(fl, cap)
+        return ncand, torch.where(live, widx, -1)
+
+    def gather(self, ph: StagedHaystack, cand: torch.Tensor):
+        """(sid [cap/1024, 8, 128] int32, halo [Hw, cap/128, 128],
+        body [Wb, cap/128, 128]): the candidate streams' words in the
+        stream-major layout; pad lanes (-1) read stream 0's rows."""
+        cap = cand.shape[0]
+        safe = cand.clamp(min=0)
+        grows = ph.rows.index_select(0, safe)
+        ghalo = ph.hrows.index_select(0, safe)
+        gbody = grows.T.reshape(-1, cap // 128, 128).contiguous()
+        ghal = ghalo.T.reshape(-1, cap // 128, 128).contiguous()
+        sid = cand.to(torch.int32).reshape(cap // LANES, 8, 128)
+        return sid, ghal, gbody
+
+    def rescan(self, ph: StagedHaystack, cand: torch.Tensor, extract: bool):
+        """Stage 2 over the candidate streams (G4): (counts, words)."""
+        _, (lo, hi, sm, em) = self._args()
+        sid, ghal, gbody = self.gather(ph, cand)
+        return _kernels.staged_gathered(
+            lo, hi, sm, em, self.full.end_limbs, sid, ghal, gbody, 0, ph.n,
+            extract,
+        )
+
+    # ------------------------------------------------------------------
+    def match_pairs(self, hs):
+        """All overlapping matches as (pids, ends), or None on candidate
+        overflow (caller falls back).
+
+        End words are written only for flagged candidate streams, so on
+        match-sparse inputs the extraction costs about a count."""
+        ph = hs if isinstance(hs, StagedHaystack) else None
+        if ph is None:
+            if len(hs) == 0:
+                return np.zeros(0, np.int64), np.zeros(0, np.int64)
+            ph = self.prepare(hs)
+        if ph.n == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        t = self.full
+        Ke = len(t.end_limbs)
+        L = ph.L
+        ns = ph.tiles * LANES
+        cap = max(self._cap_s, max(LANES, _pow2(ns // 8)))
+        cap_w = max(self._cap_w, 4096)
+        while cap <= ns:
+            ncand, cand = self.candidates(ph, cap)
+            if ncand > cap:
+                cap = max(cap * 2, _pow2(ncand))
+                continue
+            counts, words = self.rescan(ph, cand, extract=True)
+            flat = words.reshape(-1)
+            while True:
+                nnzw, wix, vals, _ = select_nonzero_words(flat, cap_w)
+                if nnzw <= cap_w:
+                    break
+                cap_w = max(64, _pow2(nnzw))
+            break
+        else:
+            return None
+        self._cap_s = max(self._cap_s, cap)
+        self._cap_w = max(self._cap_w, cap_w)
+        if int(counts.sum()) == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        words_size = (cap // LANES) * L * Ke * LANES
+        return decode_match_words(
+            t, wix.cpu().numpy(), vals.cpu().numpy().view(np.uint32), L, Ke,
+            words_size, end_limbs=t.end_limbs, stream_map=cand.cpu().numpy(),
+        )
+
+    def count_matches(self, hs) -> Optional[int]:
+        """Exact overlapping-match count, or None when the candidate set
+        overflowed the gather capacity (caller falls back)."""
+        ph = hs if isinstance(hs, StagedHaystack) else None
+        if ph is None:
+            if len(hs) == 0:
+                return 0
+            ph = self.prepare(hs)
+        if ph.n == 0:
+            return 0
+        ns = ph.tiles * LANES
+        # Start with an optimistic rescan budget and grow on overflow:
+        # the gather + stage-2 cost is proportional to cap, and most
+        # workloads flag well under an eighth of the streams.
+        cap = max(LANES, _pow2(ns // 8))
+        while cap <= ns:
+            ncand, cand = self.candidates(ph, cap)
+            if ncand <= cap:
+                counts, _ = self.rescan(ph, cand, extract=False)
+                return int(counts.sum())
+            cap = max(cap * 2, _pow2(ncand))
+        return None

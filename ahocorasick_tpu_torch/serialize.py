@@ -177,6 +177,9 @@ def from_arrays(z: dict, device="cuda"):
     )
     ac._bitap = None
     ac._bitap_checked = False
+    ac._staged = None
+    ac._fp = None
+    ac._fp_checked = False
     ac._pre = None
     ac._pre_checked = False
     ac._dense_depth = int(cfg[7])

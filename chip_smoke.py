@@ -1,33 +1,44 @@
-"""Drive the PyTorch port's main path on an NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
 Runs `ahocorasick_tpu_torch` (never JAX, never the JAX package) on the
-card: builds the Hopper shift-AND kernels from csrc/bitap.cu with nvcc,
-drives the facade at full size (the five-name set over a 64 MiB
-English-like haystack, a 16 MiB extraction, the 594,915-byte headline
-size, a 64 MiB set without a pad byte, a K = 229 limb set), holds every
-result against host truth from `bytes.find`, holds each kernel bit for
-bit against its plain PyTorch version, and times each kernel (CUDA
-events around a CUDA graph of launches) beside its bound.
+card: builds the Hopper kernels from csrc/bitap.cu (G1, G2), csrc/staged.cu
+(G3, G4) and csrc/fingerprint.cu (G5, G6) with nvcc, one compiler per
+source, all started together; drives the facade at full size on each route
+the JAX facade takes; holds every result against host truth (`bytes.find`,
+or the port's native C++ walk for the 1,000-entry dictionary); holds each
+kernel bit for bit against its plain PyTorch version at the shapes the
+facade gave it; and times each kernel (CUDA events around a CUDA graph of
+launches) beside its bound.
 
-Phases, each raising on a mismatch:
+Phases, each raising on a mismatch (launch counts are read around each
+facade call; kernel-vs-plain launches are not counted):
   1. environment (card, power limit, torch, CUDA, nvcc);
   2. build (and the ptxas register/spill report);
-  3. G2 count: 64 MiB, five names;
-  4. G2 extract: find_overlapping_iter / find_iter on 16 MiB (two 8 MiB
-     chunks), raw words against the plain version on one chunk;
-  5. G1: count + find_iter at 594,915 bytes, count at 64 MiB for a set
-     with no pad byte, a K = 229 set at a small size;
-  6. timing of each kernel at those shapes; whole facade calls (host
-     clock, ending in a synchronise) with the parts of `prepare`; a
-     torch.profiler trace of one call each for the device's idle share;
-  7. a `kernels` JSON line (launch counts from phases 3-5, errors, times,
+  3. staged count, five names, 64 MiB: G3 over 131,072 streams, then G4
+     over the candidates; raw flags and per-lane counts against the plain
+     versions;
+  4. G2: a 2 MiB count; the single-pass extraction (engine="bitap") of
+     16 MiB in two 8 MiB chunks, raw words against the plain version;
+  5. G1: count at 594,915 bytes (and its single-pass find_iter), a 64 MiB
+     count of a set with no pad byte, a K = 229 set at 1 MiB;
+  6. fingerprint fused extract of the five names: find_overlapping_iter
+     and find_iter over 16 MiB (G6, verified on the device), find_iter at
+     594,915 bytes (G5);
+  7. staged extract, 16 MiB: the five names plus a 70-byte pattern (no
+     device verify, so the staged route; G3 and G4 in extract mode);
+  8. dict1k: a 1,000-entry case-insensitive name dictionary over 64 MiB of
+     prose, count and find_overlapping_iter (G6), and a 512 KiB count (G5);
+  9. timing of each kernel at those shapes; whole facade calls (host
+     clock, median of 7) with a torch.profiler trace of one call each for
+     the device's idle share; the parts of the 64 MiB staged count;
+ 10. a `kernels` JSON line (launches from the facade calls, errors, times,
      bounds), then the card's name and power limit, then the final
      `{"ok": true, ...}` line.
 
-Exits non-zero without the final line when no CUDA device is present
-or anything fails. Details go to chiprun_out/chip_smoke.json.
+Exits non-zero without the final line when no CUDA device is present or
+anything fails. Details go to chiprun_out/chip_smoke.json.
 """
 
 import argparse
@@ -36,6 +47,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -43,9 +55,20 @@ import torch
 
 NAMES = [b"Sherlock Holmes", b"John Watson", b"Irene Adler",
          b"Inspector Lestrade", b"Professor Moriarty"]
+LONG = bytes(range(65, 91)) * 2 + b"abcdefghijklmnopqr"  # 70 bytes > W_MAX
 WORDS = (
     "the quick brown fox jumps over lazy dog time of day it was best "
     "worst epoch belief incredulity season light darkness hope despair"
+).split()
+# The dict1k generator of the JAX package's bench (its BASELINE config #3).
+NAME_SYLLABLES = (
+    "bar bel bor dan dar del dor fan far gar gor hal han har kar kel "
+    "kor lan lor mar mor nal nar nor pal par ral ran rok sar sel sor "
+    "tan tar tor val van var vor wan war zan zor"
+).split()
+PROSE_SYLLABLES = (
+    "a be ce de e fi ge hi i je ke li me ni o pe qui re si te u ve "
+    "we xi ye ze tion ing ed er ly un de re in con com pro per"
 ).split()
 MIB = 1 << 20
 HEADLINE_N = 594_915      # the reference's own headline corpus size
@@ -53,6 +76,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64    # Hopper SM: 64 INT32 units
 REPS = 20                  # kernel launches per timed CUDA graph
 RUNS = 7                   # facade calls per end-to-end median
+KERNELS = ("G1", "G2", "G3", "G4", "G5", "G6")
 
 
 def log(*a):
@@ -62,18 +86,16 @@ def log(*a):
 # ---------------------------------------------------------------------------
 # Data
 # ---------------------------------------------------------------------------
-def english(n: int, rng: np.random.Generator, name_p: float = 0.001):
-    """English-like text with the five names at rate ``name_p`` per
-    word, assembled with vectorised gathers in 8 MiB blocks."""
-    vocab = [w.encode() + b" " for w in WORDS] + [p + b" " for p in NAMES]
-    p = np.full(len(vocab), (1 - name_p) / len(WORDS))
-    p[len(WORDS):] = name_p / len(NAMES)
+def _concat_words(vocab, pick, n: int, rng) -> bytes:
+    """n bytes of words from ``vocab`` (each ending in a space), drawn by
+    ``pick(rng, count)``, assembled with vectorised gathers in 8 MiB
+    blocks."""
     flat = np.frombuffer(b"".join(vocab), np.uint8)
     lens = np.array([len(v) for v in vocab], np.int64)
     offs = np.cumsum(lens) - lens
     out, size = [], 0
     while size < n:
-        idx = rng.choice(len(vocab), size=(8 * MIB) // 5, p=p)
+        idx = pick(rng, (8 * MIB) // 5)
         ln = lens[idx]
         dst = np.cumsum(ln) - ln
         gather = np.arange(int(ln.sum())) + np.repeat(offs[idx] - dst, ln)
@@ -83,10 +105,55 @@ def english(n: int, rng: np.random.Generator, name_p: float = 0.001):
     return np.concatenate(out)[:n].tobytes()
 
 
+def english(n: int, rng: np.random.Generator, name_p: float = 0.001):
+    """English-like text with the five names at rate ``name_p`` per
+    word."""
+    vocab = [w.encode() + b" " for w in WORDS] + [p + b" " for p in NAMES]
+    p = np.full(len(vocab), (1 - name_p) / len(WORDS))
+    p[len(WORDS):] = name_p / len(NAMES)
+    return _concat_words(vocab, lambda r, k: r.choice(len(vocab), size=k,
+                                                      p=p), n, rng)
+
+
+def build_words(count, seed, syllables, capitalize=0.0):
+    rng = np.random.default_rng(seed)
+    pats = set()
+    while len(pats) < count:
+        ns = int(rng.integers(2, 5))
+        w = "".join(syllables[int(rng.integers(len(syllables)))]
+                    for _ in range(ns))
+        if capitalize and rng.random() < capitalize:
+            w = w.capitalize()
+        pats.add(w.encode())
+    return sorted(pats)
+
+
+def build_dictionary(count=1000, seed=99):
+    """A 1K-entry mixed-case name dictionary: prefix-sharing entries, the
+    shape of real dictionaries (gazetteers, name lists)."""
+    return build_words(count, seed, NAME_SYLLABLES, capitalize=0.3)
+
+
+def build_dict_text(n, pats, seed=7, density=0.002):
+    """Prose-shaped text with planted dictionary hits: each word is a
+    dictionary entry with probability ``density``, else one of 4,000
+    filler words, words separated by one space (the JAX package's bench
+    generator, drawn in bulk)."""
+    filler = build_words(4000, seed + 1, PROSE_SYLLABLES)
+    vocab = [w + b" " for w in pats] + [w + b" " for w in filler]
+    P = len(pats)
+
+    def pick(r, k):
+        hit = r.random(k) < density
+        return np.where(hit, r.integers(0, P, k),
+                        P + r.integers(0, len(filler), k))
+    return _concat_words(vocab, pick, n, np.random.default_rng(seed))
+
+
 def random_with(pats, n: int, inserts: int, rng):
     """Uniform random bytes with ``inserts`` copies of the patterns."""
     buf = rng.integers(0, 256, n, dtype=np.uint8)
-    pos = rng.choice(n - 64, size=inserts, replace=False)
+    pos = rng.choice(n - 128, size=inserts, replace=False)
     for i, at in enumerate(np.sort(pos)):
         p = pats[i % len(pats)]
         buf[at:at + len(p)] = np.frombuffer(p, np.uint8)
@@ -133,17 +200,20 @@ def smi(query: str) -> str:
 
 
 def ptxas_summary(report: str):
-    """One line per compiled kernel: template args, registers, spills."""
+    """One line per compiled kernel: demangled-enough name, registers,
+    spills."""
     lines, name = [], None
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1)
-            t = re.search(r"ILi(\d+)ELb([01])ELb([01])E", name)
-            if t:
-                name = (f"scan_kernel<KR={t.group(1)}, "
-                        f"{'G2' if t.group(2) == '1' else 'G1'}, "
-                        f"{'extract' if t.group(3) == '1' else 'count'}>")
+            raw = m.group(1)
+            k = re.search(r"_Z\d+(\w+?)ILi(\d+)E((?:Lb[01]E)*)", raw)
+            if k:
+                flags = "".join(re.findall(r"Lb([01])E", k.group(3)))
+                name = f"{k.group(1)}<KR={k.group(2)}{',' if flags else ''}" \
+                       f"{','.join(flags)}>"
+            else:
+                name = raw
         elif "spill" in ln or "Used" in ln:
             lines.append(f"  {name}: {ln.split(':', 1)[-1].strip()}")
     return lines
@@ -199,16 +269,15 @@ def kernel_ms(fn):
     return ms / (5 * REPS)
 
 
-def bound(K, kdim, n, tiles, extract, int_ops_per_s):
-    """(bound_ms, bound_by) for a scan of the n haystack bytes: the larger
-    of the bytes it must move (the n bytes and the tables read once, the
-    per-stream counts and, when extracting, 4*kdim bytes of end words per
-    haystack byte written once) over the memory rate, and the int32
-    operations (2 + 8K per haystack byte) over the int32 rate. Padding
-    and the halo's warm-up bytes are layout overhead, charged nothing."""
-    moved = n + 34 * K * 4 + tiles * 1024 * 4
-    if extract:
-        moved += n * 4 * kdim
+def bound(K, n, lanes, out_per_byte, int_ops_per_s, extra_in=0):
+    """(bound_ms, bound_by) for a shift-AND scan of the n haystack bytes
+    it must read: the larger of the bytes it must move (the n bytes, the
+    tables and ``extra_in`` read once; per-lane outputs, 4 bytes each, and
+    ``out_per_byte`` output bytes per scanned byte written once) over the
+    memory rate, and the int32 operations (2 + 8K per scanned byte) over
+    the int32 rate. Padding and the halo's warm-up bytes are layout
+    overhead, charged nothing."""
+    moved = n + 34 * K * 4 + extra_in + lanes * 4 + n * out_per_byte
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = n * (2 + 8 * K) / int_ops_per_s * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -245,6 +314,14 @@ def trace(fn):
     return (c1 - c0) / 1e3, busy / 1e3, by
 
 
+def host_ms(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -253,9 +330,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from ahocorasick_tpu_torch import AhoCorasick
+        from ahocorasick_tpu_torch import AhoCorasick, _build
         from ahocorasick_tpu_torch.ops import bitap as TB
         from ahocorasick_tpu_torch.ops import bitap_kernels as TK
+        from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
+        from ahocorasick_tpu_torch.ops import staged_kernels as SK
+        from ahocorasick_tpu_torch.ops.compaction import select_nonzero_words
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -271,7 +351,7 @@ def main() -> int:
     max_mhz = float(smi("clocks.max.sm").split()[0])
     int_ops = INT32_LANES_PER_SM * torch.cuda.get_device_properties(
         0).multi_processor_count * max_mhz * 1e6
-    nvcc = subprocess.run([TK._nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True).stdout
     log(f"[env] device: {kind} | nvidia-smi: {card}")
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -282,184 +362,348 @@ def main() -> int:
     report["env"] = dict(kind=kind, smi=card, torch=torch.__version__,
                          cuda=torch.version.cuda, max_sm_mhz=max_mhz)
 
-    # 2. Build ---------------------------------------------------------------
+    # 2. Build: one nvcc per source, all started together ---------------------
     t0 = time.time()
-    TK.load_library()
-    ptx = TK.build_report()
-    log(f"[build] bitap.cu -> sm_90a in {time.time() - t0:.1f} s")
-    for ln in ptxas_summary(ptx):
-        log("[build]" + ln)
-    report["ptxas"] = ptx
+    libs = (TK.LIBRARY, SK.LIBRARY, FK.LIBRARY)
+    errors = []
 
-    names = [p.decode() for p in NAMES]
-    ac = AhoCorasick(names, device=dev)
-    eng = ac._bitap_engine()
-    lo, hi, sm, em = eng._args()
-    errs = {"G1": 0, "G2": 0}
-    launches = {"G1": 0, "G2": 0}
+    def build(lib):
+        try:
+            lib.load()
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+    threads = [threading.Thread(target=build, args=(lib,)) for lib in libs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    log(f"[build] bitap.cu, staged.cu, fingerprint.cu -> sm_90a in "
+        f"{time.time() - t0:.1f} s (in parallel)")
+    report["ptxas"] = {}
+    for lib in libs:
+        rep = lib.report()
+        report["ptxas"][lib.stem] = rep
+        for ln in ptxas_summary(rep):
+            if "spill" in ln and " 0 bytes spill" not in ln:
+                log(f"[build] {lib.stem}:{ln}")
 
-    def drive(fn):
-        """Run one main-path call; launch counts from it are kept."""
+    errs = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in KERNELS}
+
+    def counts():
+        return dict(G1=TK.generic_launches, G2=TK.baked_launches,
+                    G3=SK.flags_launches, G4=SK.gathered_launches,
+                    G5=FK.generic_launches, G6=FK.baked_launches)
+
+    def drive(fn, expect):
+        """Run one main-path facade call with every launch count set to 0
+        just before it and read just after; the counts are kept. Raises
+        unless exactly the kernels in ``expect`` were launched."""
         TK.reset_counts()
+        SK.reset_counts()
+        FK.reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        launches["G1"] += TK.generic_launches
-        launches["G2"] += TK.baked_launches
-        return out, TK.generic_launches, TK.baked_launches
+        got = counts()
+        for k, v in got.items():
+            launches[k] += v
+        ran = {k for k, v in got.items() if v}
+        if ran != set(expect):
+            raise AssertionError(f"launched {got}, expected {expect}")
+        return out, got
 
-    # 3. G2 count, 64 MiB ------------------------------------------------------
+    def check(name, got, want):
+        """A count or a list of triples against host truth."""
+        if got != want:
+            size = len if isinstance(want, list) else int
+            raise AssertionError(f"{name}: {size(got)} vs host truth "
+                                 f"{size(want)}")
+
+    def err(k, got, want):
+        pair = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+        errs[k] = max(errs[k], max_abs_err(pair(got), pair(want)))
+
+    triples = lambda it: [m.astuple() for m in it]  # noqa: E731
+    names = [p.decode() for p in NAMES]
+    ac = AhoCorasick(names, device=dev)
+    ac_bitap = AhoCorasick(names, device=dev, engine="bitap")
+    eng = ac._bitap_engine()
+    lo, hi, sm, em = eng._args()
+
+    # 3. Staged count, 64 MiB ---------------------------------------------------
     t0 = time.time()
     hay64 = english(64 * MIB, rng)
-    truth = host_pairs(NAMES, hay64)
-    got, g1, g2 = drive(lambda: ac.count_matches(hay64))
-    assert eng.tables.pad_byte is not None and eng._use_baked(len(hay64))
-    if got != len(truth) or g2 != 1 or g1 != 0:
-        raise AssertionError(f"G2 count {got} vs {len(truth)}, "
-                             f"launches G1 {g1} G2 {g2}")
-    ph64 = eng.prepare(hay64)
-    args64 = (lo, hi, sm, em, eng.tables.end_limbs, ph64.halo_a, ph64.body,
-              False)
-    errs["G2"] = max(errs["G2"], max_abs_err(
-        TK.bitap_scan_baked(*args64), TK.bitap_scan_baked_plain(*args64)))
-    log(f"[G2 count] 64 MiB: {got} matches = host truth; K={eng.tables.k}, "
-        f"layout L={ph64.L} x {ph64.tiles} tiles; kernel = plain "
-        f"({time.time() - t0:.1f} s)")
+    truth64 = host_pairs(NAMES, hay64)
+    got, c = drive(lambda: ac.count_matches(hay64), ["G3", "G4"])
+    check("staged count 64 MiB", got, len(truth64))
+    st = ac._staged
+    sph = st.prepare(hay64)
+    (flo, fhi, fsm, fem), (slo, shi, ssm, sem) = st._args()
+    fargs = (flo, fhi, fsm, fem, sph.halo_a, sph.body)
+    err("G3", SK.staged_flags(*fargs), SK.staged_flags_plain(*fargs))
+    ns = sph.tiles * 1024
+    cap64 = max(1024, TB._pow2(ns // 8))
+    ncand64, cand64 = st.candidates(sph, cap64)
+    assert ncand64 <= cap64, (ncand64, cap64)
+    sid64, ghal64, gbody64 = st.gather(sph, cand64)
+    gargs = lambda ex: (slo, shi, ssm, sem, st.full.end_limbs,  # noqa: E731
+                        sid64, ghal64, gbody64, 0, sph.n, ex)
+    for ex in (False, True):
+        err("G4", SK.staged_gathered(*gargs(ex)),
+            SK.staged_gathered_plain(*gargs(ex)))
+    log(f"[staged count] 64 MiB: {got} matches = host truth; launches "
+        f"G3 {c['G3']} G4 {c['G4']}; Kf={st.fp.k} K={st.full.k}, "
+        f"{ns} streams of {sph.L} B, {ncand64} candidates in cap {cap64}; "
+        f"G3 flags and G4 counts/words = plain ({time.time() - t0:.1f} s)")
 
-    # 4. G2 extract, 16 MiB ------------------------------------------------------
+    # 4. G2: 2 MiB count, single-pass extraction -------------------------------
     t0 = time.time()
+    hay2 = hay64[:2 * MIB]
+    got, _ = drive(lambda: ac.count_matches(hay2), ["G2"])
+    check("G2 count 2 MiB", got, len(host_pairs(NAMES, hay2)))
+    ph2 = eng.prepare(hay2)
+    a2 = lambda ex: (lo, hi, sm, em, eng.tables.end_limbs,  # noqa: E731
+                     ph2.halo_a, ph2.body, ex)
+    err("G2", TK.bitap_scan_baked(*a2(False)),
+        TK.bitap_scan_baked_plain(*a2(False)))
     hay16 = hay64[:16 * MIB]
     truth16 = host_pairs(NAMES, hay16)
-    want_ov = overlapping_order(NAMES, truth16)
-    got_ov, g1, g2 = drive(lambda: [m.astuple()
-                                    for m in ac.find_overlapping_iter(hay16)])
+    want_ov16 = overlapping_order(NAMES, truth16)
+    want_it16 = standard_nonoverlapping(NAMES, truth16)
     # Two 8 MiB chunks on G2; the chunk loop re-splits the overlapped
-    # second chunk (8 MiB + max_len - 1 bytes), as the JAX package does,
-    # leaving a tail of 2 * (max_len - 1) bytes for G1.
-    if got_ov != want_ov or g2 != 2 or g1 > 1:
-        raise AssertionError(f"G2 overlapping extract: {len(got_ov)} vs "
-                             f"{len(want_ov)}, launches G1 {g1} G2 {g2}")
-    got_it, g1, g2 = drive(lambda: [m.astuple() for m in ac.find_iter(hay16)])
-    if got_it != standard_nonoverlapping(NAMES, truth16) or g2 != 2:
-        raise AssertionError("G2 find_iter disagrees with host truth")
+    # second chunk, as the JAX package does, leaving a short tail for G1.
+    got, c = drive(lambda: triples(ac_bitap.find_overlapping_iter(hay16)),
+                   ["G1", "G2"])
+    check("G2 single-pass extract 16 MiB", got, want_ov16)
     chunk = eng.prepare(hay16[:TB.MAX_EXTRACT_CHUNK])
-    argsx = (lo, hi, sm, em, eng.tables.end_limbs, chunk.halo_a, chunk.body,
-             True)
-    errs["G2"] = max(errs["G2"], max_abs_err(
-        TK.bitap_scan_baked(*argsx), TK.bitap_scan_baked_plain(*argsx)))
-    log(f"[G2 extract] 16 MiB: {len(got_ov)} overlapping, {len(got_it)} "
-        f"find_iter = host truth; raw words of one 8 MiB chunk = plain "
+    ax = lambda ex: (lo, hi, sm, em, eng.tables.end_limbs,  # noqa: E731
+                     chunk.halo_a, chunk.body, ex)
+    err("G2", TK.bitap_scan_baked(*ax(True)), TK.bitap_scan_baked_plain(
+        *ax(True)))
+    log(f"[G2] 2 MiB count = host truth; single-pass extract 16 MiB "
+        f"(engine='bitap'): {len(got)} overlapping = host truth, launches "
+        f"G2 {c['G2']} G1 {c['G1']}; kernel = plain (count, extract) "
         f"({time.time() - t0:.1f} s)")
 
-    # 5. G1 ---------------------------------------------------------------------
+    # 5. G1 ------------------------------------------------------------------------
     t0 = time.time()
     hay_h = hay64[:HEADLINE_N]
     truth_h = host_pairs(NAMES, hay_h)
-    got, g1, g2 = drive(lambda: ac.count_matches(hay_h))
-    if got != len(truth_h) or g1 != 1 or g2 != 0:
-        raise AssertionError(f"G1 count {got} vs {len(truth_h)}")
-    got_it, g1, g2 = drive(lambda: [m.astuple() for m in ac.find_iter(hay_h)])
-    if got_it != standard_nonoverlapping(NAMES, truth_h) or g1 != 1:
-        raise AssertionError("G1 find_iter disagrees with host truth")
+    got, _ = drive(lambda: ac.count_matches(hay_h), ["G1"])
+    check("G1 count 594,915 B", got, len(truth_h))
+    got, _ = drive(lambda: triples(ac_bitap.find_iter(hay_h)), ["G1"])
+    check("G1 find_iter 594,915 B", got,
+          standard_nonoverlapping(NAMES, truth_h))
     ph_h = eng.prepare(hay_h)
+    hx = lambda ex: (lo, hi, sm, em, ph_h.halo_a, ph_h.body,  # noqa: E731
+                     0, HEADLINE_N, ex)
     for ex in (False, True):
-        a = (lo, hi, sm, em, ph_h.halo_a, ph_h.body, 0, HEADLINE_N, ex)
-        errs["G1"] = max(errs["G1"], max_abs_err(
-            TK.bitap_scan_generic(*a), TK.bitap_scan_generic_plain(*a)))
-    log(f"[G1 headline] {HEADLINE_N} B: {len(truth_h)} matches, "
-        f"{len(got_it)} find_iter = host truth; kernel = plain "
-        f"(count, extract)")
+        err("G1", TK.bitap_scan_generic(*hx(ex)),
+            TK.bitap_scan_generic_plain(*hx(ex)))
 
     nopad = [bytes(range(8 * i, 8 * i + 8)) for i in range(32)]
     ac_np = AhoCorasick(nopad, device=dev)
     eng_np = ac_np._bitap_engine()
     assert eng_np.tables.pad_byte is None
     hay_np = random_with(nopad, 64 * MIB, 20_000, rng)
-    truth_np = host_pairs(nopad, hay_np)
-    got, g1, g2 = drive(lambda: ac_np.count_matches(hay_np))
-    if got != len(truth_np) or g1 != 1 or g2 != 0:
-        raise AssertionError(f"G1 no-pad count {got} vs {len(truth_np)}")
+    got, _ = drive(lambda: ac_np.count_matches(hay_np), ["G1"])
+    check("G1 no-pad count 64 MiB", got, len(host_pairs(nopad, hay_np)))
     ph_np = eng_np.prepare(hay_np)
     a_np = eng_np._args() + (ph_np.halo_a, ph_np.body, 0, len(hay_np), False)
-    errs["G1"] = max(errs["G1"], max_abs_err(
-        TK.bitap_scan_generic(*a_np), TK.bitap_scan_generic_plain(*a_np)))
-    log(f"[G1 no pad byte] 64 MiB, K={eng_np.tables.k}: {got} matches = "
-        f"host truth; kernel = plain")
+    err("G1", TK.bitap_scan_generic(*a_np), TK.bitap_scan_generic_plain(
+        *a_np))
 
     k229 = [bytes([i]) + b"ab" for i in range(256)]
     ac_k = AhoCorasick(k229, device=dev)
     eng_k = ac_k._bitap_engine()
     assert eng_k.tables.k == 229
     hay_k = random_with(k229, 1 * MIB, 3000, rng)
-    got, g1, g2 = drive(lambda: ac_k.count_matches(hay_k))
-    if got != len(host_pairs(k229, hay_k)) or g1 != 1:
-        raise AssertionError("G1 K=229 count disagrees with host truth")
+    got, _ = drive(lambda: ac_k.count_matches(hay_k), ["G1"])
+    check("G1 K=229 count", got, len(host_pairs(k229, hay_k)))
     ph_k = eng_k.prepare(hay_k)  # the layout the facade launched
     for ex in (False, True):
         a = eng_k._args() + (ph_k.halo_a, ph_k.body, 0, len(hay_k), ex)
-        errs["G1"] = max(errs["G1"], max_abs_err(
-            TK.bitap_scan_generic(*a), TK.bitap_scan_generic_plain(*a)))
-    log(f"[G1 K=229] 1 MiB, L={ph_k.L} x {ph_k.tiles} tiles: {got} matches "
-        f"= host truth; kernel = plain (count, extract) "
-        f"({time.time() - t0:.1f} s)")
-    log(f"[launches] main path: G1 {launches['G1']}, G2 {launches['G2']}")
+        err("G1", TK.bitap_scan_generic(*a), TK.bitap_scan_generic_plain(*a))
+    log(f"[G1] 594,915 B count and single-pass find_iter, 64 MiB no pad "
+        f"byte K={eng_np.tables.k}, K=229 at 1 MiB: all = host truth; "
+        f"kernel = plain ({time.time() - t0:.1f} s)")
 
-    # 6. Timing ------------------------------------------------------------------
-    def row(name, K, kdim, ph, extract, kern, plain):
+    # 6. Fingerprint fused extract of the five names ----------------------------
+    t0 = time.time()
+    got, c = drive(lambda: triples(ac.find_overlapping_iter(hay16)), ["G6"])
+    check("fingerprint find_overlapping_iter 16 MiB", got, want_ov16)
+    got_it, _ = drive(lambda: triples(ac.find_iter(hay16)), ["G6"])
+    check("fingerprint find_iter 16 MiB", got_it, want_it16)
+    fp = ac._fp
+    assert fp.dv is not None
+    ph16 = fp.prepare(hay16)
+    assert ph16.baked and ph16.u8f is not None
+    f16 = fp._args() + (ph16.halo_a, ph16.body)
+    err("G6", FK.fp_bitmap_baked(*f16), FK.fp_bitmap_plain(*f16, None))
+    got_h, c5 = drive(lambda: triples(ac.find_iter(hay_h)), ["G5"])
+    check("fingerprint find_iter 594,915 B", got_h,
+          standard_nonoverlapping(NAMES, truth_h))
+    phh = fp.prepare(hay_h)
+    assert not phh.baked and phh.u8f is not None
+    fh = fp._args() + (phh.halo_a, phh.body)
+    err("G5", FK.fp_bitmap_generic(*fh, 0, HEADLINE_N),
+        FK.fp_bitmap_plain(*fh, (0, HEADLINE_N)))
+    log(f"[fingerprint] five names, K={fp.tables.k}, W={fp.dv.W}: 16 MiB "
+        f"{len(got)} overlapping, {len(got_it)} find_iter (G6 {c['G6']} "
+        f"launch); 594,915 B {len(got_h)} find_iter (G5 {c5['G5']}); all = "
+        f"host truth; bitmaps = plain ({time.time() - t0:.1f} s)")
+
+    # 7. Staged extract with a pattern beyond the device-verify window ----------
+    t0 = time.time()
+    pats7 = NAMES + [LONG]
+    ac7 = AhoCorasick([p.decode() for p in pats7], device=dev)
+    buf = bytearray(hay16)
+    for at in rng.choice(len(buf) - 200, 500, replace=False):
+        buf[at:at + len(LONG)] = LONG
+    hay7 = bytes(buf)
+    truth7 = host_pairs(pats7, hay7)
+    got, c = drive(lambda: triples(ac7.find_overlapping_iter(hay7)),
+                   ["G3", "G4"])
+    check("staged extract 16 MiB", got, overlapping_order(pats7, truth7))
+    assert ac7._fp is not None and ac7._fp.dv is None
+    st7 = ac7._staged
+    ph7 = st7.prepare(hay7)
+    ncand7, cand7 = st7.candidates(ph7, st7._cap_s)
+    sid7, ghal7, gbody7 = st7.gather(ph7, cand7)
+    _, (l7, h7, s7, e7) = st7._args()
+    g7 = (l7, h7, s7, e7, st7.full.end_limbs, sid7, ghal7, gbody7, 0,
+          ph7.n, True)
+    err("G4", SK.staged_gathered(*g7), SK.staged_gathered_plain(*g7))
+    log(f"[staged extract] 16 MiB, 5 names + a {len(LONG)}-byte pattern: "
+        f"{len(got)} overlapping = host truth; launches G3 {c['G3']} G4 "
+        f"{c['G4']}; {ncand7} candidates in cap {st7._cap_s}; G4 words = "
+        f"plain ({time.time() - t0:.1f} s)")
+
+    # 8. dict1k ----------------------------------------------------------------------
+    t0 = time.time()
+    dict1k = build_dictionary()
+    hay_d = build_dict_text(64 * MIB, dict1k)
+    ac_d = AhoCorasick(dict1k, ascii_case_insensitive=True, device=dev)
+    # Host truth: the native C++ DFA walk (no device engine below the
+    # threshold).
+    native = AhoCorasick(dict1k, ascii_case_insensitive=True, device="cpu",
+                         device_threshold=1 << 62)
+    t1 = time.time()
+    truth_d = triples(native.find_overlapping_iter(hay_d))
+    native_s = time.time() - t1
+    assert native.count_matches(hay_d) == len(truth_d)
+    assert ac_d._bitap_engine() is None
+    got, cd = drive(lambda: ac_d.count_matches(hay_d), ["G6"])
+    check("dict1k count 64 MiB", got, len(truth_d))
+    got_d, _ = drive(lambda: triples(ac_d.find_overlapping_iter(hay_d)),
+                     ["G6"])
+    check("dict1k find_overlapping_iter 64 MiB", got_d, truth_d)
+    fpd = ac_d._fp
+    phd = fpd.prepare(hay_d)
+    fd = fpd._args() + (phd.halo_a, phd.body)
+    err("G6", FK.fp_bitmap_baked(*fd), FK.fp_bitmap_plain(*fd, None))
+    hay_d5 = hay_d[:512 * 1024]
+    got, _ = drive(lambda: ac_d.count_matches(hay_d5), ["G5"])
+    check("dict1k count 512 KiB", got, native.count_matches(hay_d5))
+    phd5 = fpd.prepare(hay_d5)
+    fd5 = fpd._args() + (phd5.halo_a, phd5.body)
+    err("G5", FK.fp_bitmap_generic(*fd5, 0, len(hay_d5)),
+        FK.fp_bitmap_plain(*fd5, (0, len(hay_d5))))
+    log(f"[dict1k] {len(dict1k)} patterns, K={fpd.tables.k} (level "
+        f"{fpd.level}), W={fpd.dv.W}, L={phd.L} x {phd.tiles} tiles: 64 MiB "
+        f"{len(truth_d)} matches (native walk {native_s:.1f} s) = count = "
+        f"find_overlapping_iter, G6 {cd['G6']} launch per call; 512 KiB = "
+        f"native; bitmaps = plain ({time.time() - t0:.1f} s)")
+    log(f"[launches] facade calls: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    for k in KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"{k} was never launched on a facade path")
+
+    # 9. Timing ------------------------------------------------------------------
+    def row(name, K, n, lanes, out_per_byte, kern, plain, extra_in=0):
         ms = kernel_ms(kern)
-        bms, by = bound(K, kdim, ph.n, ph.tiles, extract, int_ops)
-        r = dict(name=name, K=K, bytes=ph.n, extract=extract, ms=ms,
-                 plain_ms=events_ms(plain), bound_ms=bms, bound_by=by,
-                 gbps=ph.n / ms / 1e6, share_of_bound=bms / ms)
+        bms, by = bound(K, n, lanes, out_per_byte, int_ops, extra_in)
+        r = dict(name=name, K=K, bytes=n, ms=ms, plain_ms=events_ms(plain),
+                 bound_ms=bms, bound_by=by, gbps=n / ms / 1e6,
+                 share_of_bound=bms / ms)
         log(f"[time] {name}: {ms:.4f} ms ({r['gbps']:.1f} GB/s), plain "
             f"{r['plain_ms']:.1f} ms, bound {bms:.4f} ms ({by}), "
             f"{100 * bms / ms:.1f}% of bound | {card}")
         return r
 
     K3, Ke = eng.tables.k, len(eng.tables.end_limbs)
-    ax = lambda ex: (lo, hi, sm, em, eng.tables.end_limbs,  # noqa: E731
-                     ph64.halo_a, ph64.body, ex)
-    cx = lambda ex: (lo, hi, sm, em, eng.tables.end_limbs,  # noqa: E731
-                     chunk.halo_a, chunk.body, ex)
-    hx = lambda ex: (lo, hi, sm, em, ph_h.halo_a, ph_h.body,  # noqa: E731
-                     0, HEADLINE_N, ex)
-    rows = [
-        row("G2 count 64 MiB", K3, Ke, ph64, False,
-            lambda: TK.bitap_scan_baked(*ax(False)),
-            lambda: TK.bitap_scan_baked_plain(*ax(False))),
-        row("G2 extract 8 MiB chunk", K3, Ke, chunk, True,
-            lambda: TK.bitap_scan_baked(*cx(True)),
-            lambda: TK.bitap_scan_baked_plain(*cx(True))),
-        row("G1 count 594,915 B", K3, K3, ph_h, False,
-            lambda: TK.bitap_scan_generic(*hx(False)),
-            lambda: TK.bitap_scan_generic_plain(*hx(False))),
-        row("G1 extract 594,915 B", K3, K3, ph_h, True,
-            lambda: TK.bitap_scan_generic(*hx(True)),
-            lambda: TK.bitap_scan_generic_plain(*hx(True))),
-        row(f"G1 count 64 MiB no pad K={eng_np.tables.k}", eng_np.tables.k,
-            eng_np.tables.k, ph_np, False,
-            lambda: TK.bitap_scan_generic(*a_np),
-            lambda: TK.bitap_scan_generic_plain(*a_np)),
-    ]
+    L64 = sph.L
+    # The single-pass G2 layout of the 64 MiB count, which the staged
+    # route (G3, G4) now serves: timed beside it for comparison.
+    ph64 = eng.prepare(hay64)
+    a64 = (lo, hi, sm, em, eng.tables.end_limbs, ph64.halo_a, ph64.body,
+           False)
+    err("G2", TK.bitap_scan_baked(*a64), TK.bitap_scan_baked_plain(*a64))
+    rows = {
+        "G1": row(f"G1 count 594,915 B, K={K3}", K3, HEADLINE_N, ph_h.tiles
+                  * 1024, 0, lambda: TK.bitap_scan_generic(*hx(False)),
+                  lambda: TK.bitap_scan_generic_plain(*hx(False))),
+        "G1 no pad": row(f"G1 count 64 MiB no pad byte, K={eng_np.tables.k}",
+                         eng_np.tables.k, len(hay_np), ph_np.tiles * 1024, 0,
+                         lambda: TK.bitap_scan_generic(*a_np),
+                         lambda: TK.bitap_scan_generic_plain(*a_np)),
+        "G2": row(f"G2 count 2 MiB, K={K3}", K3, len(hay2), ph2.tiles * 1024,
+                  0, lambda: TK.bitap_scan_baked(*a2(False)),
+                  lambda: TK.bitap_scan_baked_plain(*a2(False))),
+        "G2 64 MiB": row(f"G2 count 64 MiB (PR 1's shape), K={K3}", K3,
+                         len(hay64), ph64.tiles * 1024, 0,
+                         lambda: TK.bitap_scan_baked(*a64),
+                         lambda: TK.bitap_scan_baked_plain(*a64)),
+        "G2 extract": row(f"G2 extract 8 MiB chunk, Ke={Ke}", K3,
+                          chunk.n, chunk.tiles * 1024, 4 * Ke,
+                          lambda: TK.bitap_scan_baked(*ax(True)),
+                          lambda: TK.bitap_scan_baked_plain(*ax(True))),
+        "G3": row(f"G3 flags 64 MiB, Kf={st.fp.k}, {ns} streams", st.fp.k,
+                  sph.n, ns, 0, lambda: SK.staged_flags(*fargs),
+                  lambda: SK.staged_flags_plain(*fargs)),
+        "G4": row(f"G4 count, {ncand64} candidates x {L64} B in {cap64} "
+                  f"lanes, K={st.full.k}", st.full.k, ncand64 * L64, cap64,
+                  0, lambda: SK.staged_gathered(*gargs(False)),
+                  lambda: SK.staged_gathered_plain(*gargs(False)),
+                  extra_in=4 * cap64),
+        "G4 extract": row(f"G4 extract, {ncand7} candidates x {ph7.L} B in "
+                          f"{st7._cap_s} lanes, K={st7.full.k}", st7.full.k,
+                          ncand7 * ph7.L, st7._cap_s,
+                          4 * len(st7.full.end_limbs),
+                          lambda: SK.staged_gathered(*g7),
+                          lambda: SK.staged_gathered_plain(*g7),
+                          extra_in=4 * st7._cap_s),
+        "G5": row(f"G5 bitmap 594,915 B, five names, K={fp.tables.k}",
+                  fp.tables.k, HEADLINE_N, phh.tiles * 1024, 1 / 8,
+                  lambda: FK.fp_bitmap_generic(*fh, 0, HEADLINE_N),
+                  lambda: FK.fp_bitmap_plain(*fh, (0, HEADLINE_N))),
+        "G5 dict1k": row(f"G5 bitmap 512 KiB dict1k, K={fpd.tables.k}",
+                         fpd.tables.k, len(hay_d5), phd5.tiles * 1024, 1 / 8,
+                         lambda: FK.fp_bitmap_generic(*fd5, 0, len(hay_d5)),
+                         lambda: FK.fp_bitmap_plain(*fd5, (0, len(hay_d5)))),
+        "G6": row(f"G6 bitmap 64 MiB dict1k, K={fpd.tables.k}",
+                  fpd.tables.k, len(hay_d), phd.tiles * 1024, 1 / 8,
+                  lambda: FK.fp_bitmap_baked(*fd),
+                  lambda: FK.fp_bitmap_plain(*fd, None)),
+        "G6 names": row(f"G6 bitmap 16 MiB five names, K={fp.tables.k}",
+                        fp.tables.k, len(hay16), ph16.tiles * 1024, 1 / 8,
+                        lambda: FK.fp_bitmap_baked(*f16),
+                        lambda: FK.fp_bitmap_plain(*f16, None)),
+    }
     report["timings"] = rows
     report["launches"] = launches
 
     # End to end: host clock around one facade call that ends in a
-    # synchronise, so packing, upload, transpose, scan and the host-side
-    # reduction or decode all count. Median of RUNS calls; then one call
+    # synchronise, so packing, upload, layout, scans, compaction, verify and
+    # the host-side decode all count. Median of RUNS calls; then one call
     # under the profiler for the device's busy time.
-    def host_ms(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3
-
     def e2e(name, n, fn):
         ts = [host_ms(fn) for _ in range(RUNS)]
         ms = float(np.median(ts))
         call_ms, busy_ms, by = trace(fn)
-        # Share of the traced call (the profiler slows the host side, so
-        # this leans high) and of the untraced median.
         idle = None if busy_ms is None else 1 - busy_ms / call_ms
         idle_med = None if busy_ms is None else 1 - busy_ms / ms
         top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
@@ -478,67 +722,99 @@ def main() -> int:
                     device_ms_by_name=by)
 
     report["end_to_end"] = [
-        e2e("count_matches 64 MiB (G2)", len(hay64),
+        e2e("count_matches 64 MiB (staged: G3, G4)", len(hay64),
             lambda: ac.count_matches(hay64)),
-        e2e("find_overlapping_iter 16 MiB (G2)", len(hay16),
-            lambda: list(ac.find_overlapping_iter(hay16))),
+        e2e("count_matches 2 MiB (G2)", len(hay2),
+            lambda: ac.count_matches(hay2)),
         e2e("count_matches 594,915 B (G1)", len(hay_h),
             lambda: ac.count_matches(hay_h)),
-        e2e("find_iter 594,915 B (G1)", len(hay_h),
+        e2e("find_overlapping_iter 16 MiB (fingerprint: G6)", len(hay16),
+            lambda: list(ac.find_overlapping_iter(hay16))),
+        e2e("find_iter 594,915 B (fingerprint: G5)", len(hay_h),
             lambda: list(ac.find_iter(hay_h))),
+        e2e("find_overlapping_iter 16 MiB, engine='bitap' (G2)",
+            len(hay16), lambda: list(ac_bitap.find_overlapping_iter(hay16))),
+        e2e("find_overlapping_iter 16 MiB + 70-byte pattern (staged: G3, "
+            "G4)", len(hay7), lambda: list(ac7.find_overlapping_iter(hay7))),
+        e2e("dict1k count_matches 64 MiB (fingerprint: G6)", len(hay_d),
+            lambda: ac_d.count_matches(hay_d)),
+        e2e("dict1k find_overlapping_iter 64 MiB (fingerprint: G6)",
+            len(hay_d), lambda: list(ac_d.find_overlapping_iter(hay_d))),
+        e2e("dict1k count_matches 512 KiB (fingerprint: G5)", len(hay_d5),
+            lambda: ac_d.count_matches(hay_d5)),
     ]
 
-    # The 64 MiB count's steps, RUNS times, each run beside a whole
+    # The 64 MiB staged count's steps, RUNS times, each run beside a whole
     # count_matches call: the host pack, the pageable upload, the device's
-    # stream-major transpose and the scan with its reduction, each ended
-    # by a synchronise and read on the host clock, so the parts add up to
-    # their sum; the upload and the transpose also in CUDA events.
+    # row and stream-major layouts, G3 with the candidate compaction, the
+    # gather with G4 and the sum, each ended by a synchronise and read on
+    # the host clock, so the parts add up to their sum.
     parts = {k: [] for k in ("count_matches", "sum_of_parts", "pack",
-                             "upload", "transpose", "scan_and_sum",
-                             "upload_events", "transpose_events")}
+                             "upload", "layouts", "flags_and_select",
+                             "gather_rescan_sum")}
+    from ahocorasick_tpu_torch.ops.staged import _staged_layouts
     for _ in range(RUNS):
         parts["count_matches"].append(host_ms(lambda: ac.count_matches(hay64)))
         t0 = time.perf_counter()
-        x32 = torch.from_numpy(eng._pack(hay64, ph64.L, ph64.tiles,
-                                         eng.tables.pad_byte))
+        buf = np.full(ns * sph.L, st.full.pad_byte, np.uint8)
+        buf[:len(hay64)] = np.frombuffer(hay64, np.uint8)
+        x32 = torch.from_numpy(buf.view(np.int32))
         t1 = time.perf_counter()
         xd = x32.to(dev)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        halo, body = TB._to_stream_major(xd, ph64.L, ph64.tiles, eng.halo)
+        rows_, hrows_, halo_, body_ = _staged_layouts(xd, sph.L, sph.tiles,
+                                                      st.halo)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        c, _ = TK.bitap_scan_baked(lo, hi, sm, em, eng.tables.end_limbs,
-                                   halo, body, False)
-        assert int(c.sum()) == len(truth)
+        fl = SK.staged_flags(flo, fhi, fsm, fem, halo_, body_).reshape(-1)
+        nc, widx, _, live = select_nonzero_words(fl, cap64)
+        cand = torch.where(live, widx, -1)
+        torch.cuda.synchronize()
         t4 = time.perf_counter()
+        safe = cand.clamp(min=0)
+        gb = rows_.index_select(0, safe).T.reshape(-1, cap64 // 128, 128)
+        gh = hrows_.index_select(0, safe).T.reshape(-1, cap64 // 128, 128)
+        cnt, _ = SK.staged_gathered(
+            slo, shi, ssm, sem, st.full.end_limbs,
+            cand.to(torch.int32).reshape(cap64 // 1024, 8, 128),
+            gh.contiguous(), gb.contiguous(), 0, len(hay64), False)
+        assert int(cnt.sum()) == len(truth64)
+        t5 = time.perf_counter()
         for k, a, b in (("pack", t0, t1), ("upload", t1, t2),
-                        ("transpose", t2, t3), ("scan_and_sum", t3, t4),
-                        ("sum_of_parts", t0, t4)):
+                        ("layouts", t2, t3), ("flags_and_select", t3, t4),
+                        ("gather_rescan_sum", t4, t5),
+                        ("sum_of_parts", t0, t5)):
             parts[k].append((b - a) * 1e3)
-        parts["upload_events"].append(events_ms(lambda: x32.to(dev)))
-        parts["transpose_events"].append(events_ms(
-            lambda: TB._to_stream_major(xd, ph64.L, ph64.tiles, eng.halo)))
-        del x32, xd, halo, body, c
+        del buf, x32, xd, rows_, hrows_, halo_, body_, fl, cand, gb, gh
     med = {k: float(np.median(v)) for k, v in parts.items()}
-    log("[e2e parts] count_matches 64 MiB, medians of "
+    log("[e2e parts] staged count_matches 64 MiB, medians of "
         f"{RUNS}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
         + f" | {card}")
-    report["prepare_parts"] = dict(runs_ms=parts, median_ms=med)
+    report["staged_count_parts"] = dict(runs_ms=parts, median_ms=med)
 
-    # 7. Result lines --------------------------------------------------------------
-    def entry(name, fn, line, r):
-        return dict(name=name, route="cuda",
-                    source="ahocorasick_tpu_torch/csrc/bitap.cu",
-                    replaces=f"ahocorasick_tpu/ops/bitap.py:{line}",
-                    launches=launches[name.split()[0]],
-                    max_abs_err=errs[name.split()[0]], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=None, shape=r["name"],
-                    function=fn)
+    # 10. Result lines ---------------------------------------------------------------
+    def entry(k, fn, src, line, r):
+        return dict(name=f"{k} {fn}", route="cuda",
+                    source=f"ahocorasick_tpu_torch/csrc/{src}",
+                    replaces=line, launches=launches[k],
+                    max_abs_err=errs[k], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    share=r["share_of_bound"], library_ms=None,
+                    shape=r["name"])
     kernels = [
-        entry("G1 bitap_generic_scan", "_make_kernel", 284, rows[2]),
-        entry("G2 bitap_baked_scan", "_make_baked_kernel", 400, rows[0]),
+        entry("G1", "bitap_generic_scan", "bitap.cu",
+              "ahocorasick_tpu/ops/bitap.py:284", rows["G1"]),
+        entry("G2", "bitap_baked_scan", "bitap.cu",
+              "ahocorasick_tpu/ops/bitap.py:400", rows["G2"]),
+        entry("G3", "staged_flags", "staged.cu",
+              "ahocorasick_tpu/ops/staged.py:77", rows["G3"]),
+        entry("G4", "staged_gathered", "staged.cu",
+              "ahocorasick_tpu/ops/staged.py:152", rows["G4"]),
+        entry("G5", "fp_bitmap (masked)", "fingerprint.cu",
+              "ahocorasick_tpu/ops/fingerprint.py:369", rows["G5"]),
+        entry("G6", "fp_bitmap (pad-byte padded)", "fingerprint.cu",
+              "ahocorasick_tpu/ops/fingerprint.py:434", rows["G6"]),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.time() - t_start

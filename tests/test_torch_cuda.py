@@ -18,6 +18,10 @@ import torch
 from ahocorasick_tpu_torch import AhoCorasick
 from ahocorasick_tpu_torch.ops import bitap as TB
 from ahocorasick_tpu_torch.ops import bitap_kernels as TK
+from ahocorasick_tpu_torch.ops import fingerprint as TF
+from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
+from ahocorasick_tpu_torch.ops import staged as TS
+from ahocorasick_tpu_torch.ops import staged_kernels as SK
 
 pytestmark = pytest.mark.cuda
 
@@ -93,7 +97,114 @@ def test_facade_goes_through_kernels(dev):
     TK.reset_counts()
     assert ac.count_matches(hay) == truth.count_matches(hay)
     assert TK.baked_launches == 1 and TK.generic_launches == 0
+    # At 594,915 bytes the count takes G1; find_iter, as in the JAX
+    # facade, the fingerprint engine's fused extract (G5).
     small = hay[:594_915]
+    assert ac.count_matches(small) == truth.count_matches(small)
+    assert TK.generic_launches == 1
+    FK.reset_counts()
     assert [m.astuple() for m in ac.find_iter(small)] == [
         m.astuple() for m in truth.find_iter(small)]
-    assert TK.generic_launches == 1
+    assert TK.generic_launches == 1 and FK.generic_launches == 1
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if w is not None:
+            assert torch.equal(g, w)
+
+
+def _dictionary(seed, count=600):
+    rng = np.random.default_rng(seed)
+    pats = set()
+    while len(pats) < count:
+        ln = int(rng.integers(4, 13))
+        pats.add(rng.integers(97, 123, ln, dtype=np.uint8).tobytes())
+    return sorted(pats)
+
+
+STAGED_SETS = {
+    "names": NAMES,
+    # K = 107 limbs for the full set, 105 for the prefixes: the spill path.
+    "spill": [bytes([65 + i % 26, 97 + i // 26]) + b"abcdefghijklmnop"[:i % 7]
+            + b"xyz" for i in range(130)],
+}
+
+
+@pytest.mark.parametrize("name", list(STAGED_SETS))
+def test_staged_kernels_equal_plain(dev, name):
+    """G3 over the whole layout; G4 over the candidates, with pad lanes
+    (-1) and stream 0 among them, count and extract."""
+    pats = STAGED_SETS[name]
+    eng = TS.StagedEngine(pats, False, dev)
+    hay = bytearray(_hay(3 << 20, 4, pats))
+    hay[:len(pats[0])] = pats[0]
+    ph = eng.prepare(bytes(hay))
+    (flo, fhi, fsm, fem), (lo, hi, sm, em) = eng._args()
+    flags = SK.staged_flags(flo, fhi, fsm, fem, ph.halo_a, ph.body)
+    _same([flags], [SK.staged_flags_plain(flo, fhi, fsm, fem, ph.halo_a,
+                                          ph.body)])
+    ncand, cand = eng.candidates(ph, 4096)
+    assert 0 < ncand < 4096 and int(cand[0]) == 0
+    sid, ghal, gbody = eng.gather(ph, cand)
+    for extract in (False, True):
+        args = (lo, hi, sm, em, eng.full.end_limbs, sid, ghal, gbody, 0,
+                len(hay), extract)
+        _same(SK.staged_gathered(*args), SK.staged_gathered_plain(*args))
+
+
+@pytest.mark.parametrize("baked", [False, True], ids=["G5", "G6"])
+def test_fp_bitmap_kernel_equals_plain(dev, baked):
+    pats = _dictionary(5)
+    eng = TF.FingerprintEngine(pats, True, dev)
+    hay = _hay(2 << 20, 5, pats)
+    ph = eng.prepare(hay)
+    assert ph.baked
+    lo, hi, sm, em = eng._args()
+    if baked:
+        got = FK.fp_bitmap_baked(lo, hi, sm, em, ph.halo_a, ph.body)
+        want = FK.fp_bitmap_plain(lo, hi, sm, em, ph.halo_a, ph.body, None)
+    else:
+        got = FK.fp_bitmap_generic(lo, hi, sm, em, ph.halo_a, ph.body, 9,
+                                   len(hay) - 9)
+        want = FK.fp_bitmap_plain(lo, hi, sm, em, ph.halo_a, ph.body,
+                                  (9, len(hay) - 9))
+    _same(got, want)
+
+
+def _counts():
+    return (TK.generic_launches, TK.baked_launches, SK.flags_launches,
+            SK.gathered_launches, FK.generic_launches, FK.baked_launches)
+
+
+def _reset():
+    TK.reset_counts()
+    SK.reset_counts()
+    FK.reset_counts()
+
+
+def test_facade_staged_and_fingerprint_routes(dev):
+    """The routes of the JAX facade: a 4 MiB count goes staged (G3, G4),
+    a 2 MiB extraction to the fingerprint engine (G6), a 300 KB
+    extraction to it too (G5), each equal to the oracle walk."""
+    strs = [p.decode() for p in NAMES]
+    ac = AhoCorasick(strs, device=dev)
+    truth = AhoCorasick(strs, device="cpu", engine="oracle")
+    hay = _hay(TS.STAGED_MIN, 6, NAMES)
+    _reset()
+    assert ac.count_matches(hay) == truth.count_matches(hay)
+    assert _counts() == (0, 0, 1, 1, 0, 0)
+    for n, kernel in ((2 << 20, 5), (300_000, 4)):
+        _reset()
+        assert [m.astuple() for m in ac.find_overlapping_iter(hay[:n])] == [
+            m.astuple() for m in truth.find_overlapping_iter(hay[:n])]
+        assert [c > 0 for c in _counts()] == [i == kernel for i in range(6)]
+    pats = _dictionary(6)
+    big = AhoCorasick(pats, device=dev, ascii_case_insensitive=True)
+    dtruth = AhoCorasick(pats, device="cpu", engine="oracle",
+                         ascii_case_insensitive=True)
+    h = _hay(1 << 20, 7, pats)
+    _reset()
+    assert big.count_matches(h) == dtruth.count_matches(h)
+    assert [c > 0 for c in _counts()] == [False] * 5 + [True]

@@ -6,7 +6,8 @@
 - A seeded subset held against the JAX facade (Pallas interpret mode).
 - The error-contract, stream and fuzz cases of the JAX package's own
   tests, ported.
-- Forced engines that are not ported yet raise NotImplementedError.
+- A forced fingerprint engine held against the JAX facade's; forced
+  engines that are not ported yet raise NotImplementedError.
 
 Every searcher is built with ``device="cpu"``, so the kernels' plain
 PyTorch versions run. All outputs are integer triples or bytes: the
@@ -197,13 +198,35 @@ def test_ineligible_set_against_jax_facade():
 # ---------------------------------------------------------------------------
 # Routing and device
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("mode", ["dfa-scan", "device-only", "fingerprint",
-                                  "cascade"])
+@pytest.mark.parametrize("mode", ["dfa-scan", "device-only", "cascade"])
 def test_unported_engines_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         AhoCorasick(["abc"], engine=mode)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         AhoCorasickBuilder(device="cpu").engine(mode)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_forced_fingerprint_against_jax_facade(kind):
+    """engine="fingerprint" on a set the bit-parallel engine also accepts:
+    both facades run the fingerprint engine (host verify at this size)."""
+    rng = np.random.default_rng(23)
+    pats = sorted({bytes(rng.choice(list(b"abcdefgh"),
+                                    int(rng.integers(3, 9))).astype(np.uint8))
+                   for _ in range(60)})
+    hay = bytes(rng.choice(list(b"abcdefghij "), 6000).astype(np.uint8))
+    jac = J.AhoCorasick(pats, engine="fingerprint",
+                        match_kind=J.MatchKind(kind.value))
+    tac = AhoCorasick(pats, engine="fingerprint", match_kind=kind)
+    assert tac._bitap_engine() is None
+    assert triples(tac.find_iter(Input(hay))) == triples(
+        jac.find_iter(J.Input(hay)))
+    assert tac._fp is not None
+    if kind.is_standard():
+        assert triples(tac.find_overlapping_iter(Input(hay))) == triples(
+            jac.find_overlapping_iter(J.Input(hay)))
+        assert tac.count_matches(Input(hay)) == jac.count_matches(
+            J.Input(hay)) > 50
 
 
 def test_unknown_engine_and_device():

@@ -18,6 +18,10 @@ def test_import_loads_no_jax():
         "import sys, ahocorasick_tpu_torch as T\n"
         "T.AhoCorasick(['ab'], device='cpu').count_matches(b'xab')\n"
         "import ahocorasick_tpu_torch.serialize, ahocorasick_tpu_torch.stream\n"
+        "from ahocorasick_tpu_torch.ops import staged, staged_kernels, "
+        "fingerprint, fingerprint_kernels, compaction\n"
+        "T.AhoCorasick(['abcdef', 'bcdefg'], device='cpu', "
+        "engine='fingerprint').count_matches(b'xabcdefg' * 600)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'ahocorasick_tpu' or "
         "m.startswith('ahocorasick_tpu.'))\n"

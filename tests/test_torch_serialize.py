@@ -91,3 +91,23 @@ def test_load_of_unported_engine_raises(tmp_path):
     jac.save(p)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.AhoCorasick.load(p, device="cpu")
+
+
+def test_fingerprint_searcher_roundtrip(tmp_path):
+    """A forced engine="fingerprint" searcher saved by either package
+    loads in the port with its engine mode and searches the same."""
+    pats = ["append", "appendage", "snapped", "apple", "maple"]
+    jac = J.AhoCorasick(pats, engine="fingerprint")
+    tac = T.AhoCorasick(pats, engine="fingerprint", device="cpu")
+    hay = "the appendage snapped an apple maple append " * 40
+    want = triples(jac.find_overlapping_iter(J.Input(hay)))
+    for i, src in enumerate((jac, tac)):
+        p = str(tmp_path / f"fp{i}.npz")
+        src.save(p)
+        back = T.AhoCorasick.load(p, device="cpu")
+        assert back._engine_mode == "fingerprint"
+        assert back._bitap_engine() is None
+        assert triples(back.find_overlapping_iter(T.Input(hay))) == want
+        assert back._fp is not None
+    back = TS.from_arrays(TS.to_arrays(tac), device="cpu")
+    assert back.count_matches(T.Input(hay)) == len(want)
