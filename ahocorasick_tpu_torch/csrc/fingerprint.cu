@@ -22,14 +22,30 @@
 // tables computes the same function; G5 and G6 are one kernel here, with
 // the mask as a template switch.
 //
-// What bounds it on an H100: integer issue, about 2 + 8K int32 operations
-// per byte against one byte read and one bit written; at K = 7 that is
-// ~58 operations per byte, ~0.23 ms for 64 MiB at 16.7 Tops/s against
-// ~0.02 ms of HBM time.
+// What bounds it on an H100: instruction issue. At the least a byte costs
+// two integer operations and, per limb, a funnel shift, three three-input
+// logic operations (the step's two and any |= m & end) and two
+// shared-memory loads (step_cycles in chip_smoke.py); at K = 8 (dict1k)
+// that is 34 logic operations per byte at 64 per SM and clock, 0.14 ms for
+// 64 MiB, against 0.02 ms of HBM time.
 //
-// Design: the G1 design (shift_and.cuh). One thread per stream; the 32
-// positions of a bitmap word accumulate in a register and are stored once,
-// lane-fastest, so a warp's bitmap stores coalesce like its word loads.
+// Design: the G1 design (bitap.cu, shift_and.cuh). One thread per
+// (segment, stream), each stream cut into P segments of Ls bytes, Ls a
+// multiple of 32 (segment_plan in ops/bitap_kernels.py), so each bitmap
+// word belongs to one segment and is written by one thread: the 32
+// positions accumulate in a register and are stored once, lane-fastest,
+// so a warp's bitmap stores coalesce like its word loads. A segment warms
+// up over the H bytes before it (the halo for segment 0), only segment 0
+// of stream 0 resets, the G5 mask tests position s*L + j*Ls + t, and the
+// per-stream counts are atomicAdds into zeroed counts. Words arrive
+// through the cp.async ring of walk_rows; the step is step_padded, every
+// limb of the bucket with no per-limb guard (6.1 instructions per limb and
+// byte step, 11.5 with the guard).
+//
+// Measured (chip_smoke.py, H100 SXM at 700 W): 57% of the operations
+// bound over 64 MiB of dict1k (K = 8, 262,144 threads), 22% over 16 MiB of
+// the five names (K = 1, where the few operations per byte leave the word
+// loads and the launch in view), 4-16% on the 0.5-0.6 MiB shapes.
 //
 // Each entry point launches on the caller's stream, never synchronises,
 // allocates nothing, and returns cudaGetLastError().
@@ -47,31 +63,36 @@ struct Params {
   const uint32_t* em;     // [K] chain-end bits
   const uint32_t* halo;   // [Hw, S] words, stream-major
   const uint32_t* body;   // [Wb, S] words, stream-major
-  int32_t* counts;        // [S]
+  int32_t* counts;        // [S], zeroed by the caller (segments add)
   int32_t* bitmap;        // [tiles, L/32, 1024]
-  uint32_t* state;        // [K, S] scratch for K > 64, else null
+  uint32_t* state;        // [K, state_row] scratch (K > 64) or null
+  int state_row;          // words per limb row of state, >= S*P
   int K;
   int Hw;
   int Wb;
   int S;
+  int P;                  // segments per stream, dividing Wb / 8
   long long n0;           // G5 window [n0, n)
   long long n;
 };
 
 template <int KR, bool MASKED>
-__global__ void __launch_bounds__(kThreads) bitmap_kernel(Params p) {
-  extern __shared__ uint32_t tab[];
+__global__ void __launch_bounds__(kSegThreads) bitmap_kernel(Params p) {
+  extern __shared__ uint32_t smem[];  // lo [K*16], hi [K*16], then the ring
   const int K = p.K;
   const uint32_t* LO;
   const uint32_t* HI;
-  load_tables<KR>(p.lo, p.hi, K, tab, LO, HI);
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= p.S) return;
+  load_tables_padded<KR>(p.lo, p.hi, K, smem, LO, HI);
+  Segment g;
+  if (!segment_of(p.S, p.P, p.Wb, g)) return;
+  const int s = g.s;
 
   Limbs<KR> st;
-  init<KR>(st, p.sm, p.em, p.state, s, p.S, K);
-  walk_halo<KR>(st, LO, HI, K, p.halo, p.Hw, s, p.S, [](int, uint32_t) {});
-  if (s == 0) reset<KR>(st, K);
+  init_padded<KR>(st, p.sm, p.em, p.state, g.t, p.state_row, K);
+  const SegmentRows rows{p.halo, p.body, static_cast<size_t>(p.S), p.Hw,
+                         g.w0, g.j == 0};
+  // Stream 0's halo wraps around to the end of the buffer: no history.
+  const bool reset_at_body = s == 0 && g.j == 0;
 
   const long long L = 4LL * p.Wb;
   const long long pos0 = static_cast<long long>(s) * L;
@@ -81,12 +102,23 @@ __global__ void __launch_bounds__(kThreads) bitmap_kernel(Params p) {
                   lane;
   uint32_t acc = 0u;
   int cnt = 0;
-  for (int w = 0; w < p.Wb; ++w) {
-    const uint32_t word = p.body[static_cast<size_t>(w) * p.S + s];
+  uint32_t* ring = smem + 32 * KR;  // past the tables
+  walk_rows(rows, s, p.Hw + g.nw, ring, [&](int i, uint32_t word) {
+    if (i < p.Hw) {  // warm-up: no hits
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        step_padded<KR>(st, LO, HI, K, (word >> (8 * jj)) & 255u,
+                 [](int, uint32_t) {});
+      }
+      return;
+    }
+    if (reset_at_body && i == p.Hw) reset<KR>(st, K);
+    // The segment starts on a multiple of 8 words: bitmap words are whole.
+    const int w = g.w0 + i - p.Hw;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       uint32_t any = 0u;
-      step<KR>(st, LO, HI, K, (word >> (8 * jj)) & 255u,
+      step_padded<KR>(st, LO, HI, K, (word >> (8 * jj)) & 255u,
                [&](int k, uint32_t nm) { any |= nm & st.end(k); });
       uint32_t hit = any != 0u ? 1u : 0u;
       if constexpr (MASKED) {
@@ -100,20 +132,22 @@ __global__ void __launch_bounds__(kThreads) bitmap_kernel(Params p) {
       brow[static_cast<size_t>(w >> 3) * kLanes] = static_cast<int32_t>(acc);
       acc = 0u;
     }
-  }
-  p.counts[s] = cnt;
+  });
+  if (cnt != 0) atomicAdd(p.counts + s, cnt);
 }
 
 }  // namespace
 
 extern "C" {
 
-// G5 (masked != 0) and G6. counts: [S] int32; bitmap: [tiles, L/32, 1024]
-// int32, L = 4 * Wb a multiple of 32.
+// G5 (masked != 0) and G6. counts: [S] int32, zeroed; bitmap:
+// [tiles, L/32, 1024] int32, L = 4 * Wb a multiple of 32; P segments per
+// stream, each a multiple of 32 bytes; state: [K, state_row] for K > 64.
 int fp_bitmap(const void* lo, const void* hi, const void* sm, const void* em,
               int K, const void* halo, int Hw, const void* body, int Wb,
-              int S, int masked, long long n0, long long n, void* counts,
-              void* bitmap, void* state, void* stream) {
+              int S, int P, int masked, long long n0, long long n,
+              void* counts, void* bitmap, void* state, int state_row,
+              void* stream) {
   Params p{};
   p.lo = static_cast<const uint32_t*>(lo);
   p.hi = static_cast<const uint32_t*>(hi);
@@ -124,21 +158,23 @@ int fp_bitmap(const void* lo, const void* hi, const void* sm, const void* em,
   p.counts = static_cast<int32_t*>(counts);
   p.bitmap = static_cast<int32_t*>(bitmap);
   p.state = static_cast<uint32_t*>(state);
+  p.state_row = state_row;
   p.K = K;
   p.Hw = Hw;
   p.Wb = Wb;
   p.S = S;
+  p.P = P;
   p.n0 = n0;
   p.n = n;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (masked) {
     SHIFT_AND_FOR_BUCKET(
-        K, bitmap_kernel<KR, true>
-               <<<blocks_for(S), kThreads, shmem_bytes(KR, K), st>>>(p));
+        K, bitmap_kernel<KR, true><<<seg_blocks_for(S, P), kSegThreads,
+                                     seg_shmem_bytes(KR), st>>>(p));
   } else {
     SHIFT_AND_FOR_BUCKET(
-        K, bitmap_kernel<KR, false>
-               <<<blocks_for(S), kThreads, shmem_bytes(KR, K), st>>>(p));
+        K, bitmap_kernel<KR, false><<<seg_blocks_for(S, P), kSegThreads,
+                                      seg_shmem_bytes(KR), st>>>(p));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,18 +25,21 @@
 // them at run time, which computes the same function (the Pallas pruned
 // select trees only skip lookups whose result is zero).
 //
-// What bounds them on an H100: integer issue, as for G1/G2. G3 costs about
-// 2 + 8Kf int32 operations per byte against one byte read (Kf = 1: ~10
-// operations, so at 64 MiB ~0.04 ms at 16.7 Tops/s against ~0.02 ms of
-// HBM time). G4 does 2 + 8K per byte of the candidate streams only, plus
-// 4Ke bytes of end words per byte when extracting.
+// What bounds them on an H100: instruction issue, as for G1/G2. At the
+// least G3 costs 2 integer operations per byte and, per limb, a funnel
+// shift and three three-input logic operations (the step's two and
+// flag |= m & end) and two shared-memory loads (step_cycles in
+// chip_smoke.py; Kf = 1: ~0.024 ms at 64 MiB against ~0.02 ms of HBM
+// time). G4 does a count's step per byte of the candidate streams only,
+// plus 4Ke bytes of end words per byte when extracting.
 //
-// Design: the G1 design (one thread per stream walking halo then body,
-// stream-major words, registers for K <= 64, lo/hi in shared memory; see
-// shift_and.cuh). Stage 1 uses STAGED_L = 512-byte streams, so 64 MiB
-// gives 131,072 threads, four times G1's count at that size and about
-// half the card's resident thread slots. Stage 2 runs cap lanes (a power
-// of two >= 1024), one per candidate stream.
+// Design: one thread per stream walking halo then body (walk_halo), the
+// guarded step, stream-major words, registers for K <= 64, lo/hi in
+// shared memory (shift_and.cuh). Stage 1 uses STAGED_L = 512-byte
+// streams, so 64 MiB gives 131,072 threads, about half the card's
+// resident thread slots. Stage 2 runs cap lanes (a power of two >= 1024),
+// one per candidate stream. G1/G2's segments and guard-free step are not
+// applied here yet.
 //
 // Each entry point launches on the caller's stream, never synchronises,
 // allocates nothing, and returns cudaGetLastError().

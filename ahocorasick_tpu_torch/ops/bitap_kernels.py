@@ -18,11 +18,13 @@ On a CPU tensor a wrapper computes its kernel's plain version; on a CUDA
 tensor it launches the kernel (building it with ``nvcc`` at first use) or
 raises. Each wrapper counts its launches in a module-level integer
 (``generic_launches``, ``baked_launches``) so a run can show which kernels
-the main path went through.
+the main path went through, and keeps the ``(threads, P, Ls)`` it last
+launched with (``generic_plan``, ``baked_plan``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -33,14 +35,25 @@ from .._build import I, LL, P
 # Launches of each kernel since the last reset (plain versions not counted).
 generic_launches = 0
 baked_launches = 0
+# (threads, P, Ls) of each kernel's last launch: S * P threads, P segments
+# of Ls bytes per stream.
+generic_plan: Optional[Tuple[int, int, int]] = None
+baked_plan: Optional[Tuple[int, int, int]] = None
 
 # Limbs held in registers by the kernels; beyond this the state spills to a
 # global scratch that the wrapper allocates.
 MAX_REG_LIMBS = 64
 
+# The spill path's limb scratch [K, S*P] is kept within the 50 MB L2.
+MAX_SPILL_BYTES = 32 << 20
+# Words of padding per limb row of the segmented kernels' scratch: a
+# power-of-two row would map every limb of a thread to the same cache sets.
+SPILL_PAD = 32
+
 LIBRARY = _build.CudaLibrary("bitap.cu", {
-    "bitap_generic_scan": (P, P, P, P, I, P, I, P, I, I, LL, LL, P, P, P, P),
-    "bitap_baked_scan": (P, P, P, P, I, I, P, I, P, I, I, P, P, P, P),
+    "bitap_generic_scan": (P, P, P, P, I, P, I, P, I, I, I, LL, LL, P, P, P,
+                           I, P),
+    "bitap_baked_scan": (P, P, P, P, I, I, P, I, P, I, I, I, P, P, P, I, P),
 })
 
 
@@ -82,9 +95,54 @@ def check_scan_args(lo, hi, sm, em, halo, body) -> Tuple[int, int, int, int]:
 
 
 def spill_state(dev: torch.device, K: int, S: int) -> Optional[torch.Tensor]:
-    """Limb-state scratch [K*S] for K > MAX_REG_LIMBS, else None."""
+    """Limb-state scratch [K*S] for K > MAX_REG_LIMBS, else None (S: one
+    column per thread)."""
     return (torch.empty(K * S, dtype=torch.int32, device=dev)
             if K > MAX_REG_LIMBS else None)
+
+
+def segment_state(dev: torch.device, K: int,
+                  threads: int) -> Tuple[Optional[torch.Tensor], int]:
+    """(scratch, row) of a segmented launch: the limb-state scratch with
+    rows of ``row = threads + SPILL_PAD`` words (None for K <= 64); the
+    kernel takes ``row`` as its limb stride."""
+    row = threads + SPILL_PAD
+    return spill_state(dev, K, row), row
+
+
+@functools.lru_cache(maxsize=None)
+def resident_threads(dev: torch.device) -> int:
+    """Resident thread slots of the card: SMs x threads per SM (270,336 on
+    an H100 SXM)."""
+    props = torch.cuda.get_device_properties(dev)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+def segment_plan(L: int, H: int, S: int, align: int, K: int,
+                 resident: int) -> Tuple[int, int]:
+    """(P, Ls): the segmented kernels cut each L-byte stream into P
+    segments of Ls = L / P bytes, one thread per (segment, stream).
+
+    A segment warms up over the H bytes before it (the halo for segment 0,
+    the stream's own bytes otherwise), which gives the state of a whole-
+    stream scan bit for bit, since a state depends only on the last
+    max_len - 1 <= H bytes. The plan takes the most segments such that
+    ``Ls`` is a multiple of ``align`` (4 for end words, 32 for bitmap
+    words), ``Ls >= H`` (the warm-up is at most half a thread's walk), the
+    S * P threads fit the card's ``resident`` thread slots and, beyond
+    MAX_REG_LIMBS limbs, the limb scratch stays within MAX_SPILL_BYTES.
+    P = 1 where L leaves no room. Derived from the shapes and the card
+    only."""
+    if L % align:
+        raise ValueError(f"L={L} is not a multiple of {align}")
+    best = (1, L)
+    for P in range(2, L // align + 1):
+        if L // P < H or S * P > resident or (
+                K > MAX_REG_LIMBS and 4 * K * S * P > MAX_SPILL_BYTES):
+            break
+        if (L // align) % P == 0:
+            best = (P, L // P)
+    return best
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -103,9 +161,10 @@ def launch(dev: torch.device, fn, name: str, *args) -> None:
 
 def _outputs(dev: torch.device, kdim: int, Wb: int, tiles: int,
              extract: bool):
-    """(counts [tiles,8,128], words [tiles,L,kdim,8,128] or None),
-    uninitialised: the kernel writes every element."""
-    counts = torch.empty((tiles, 8, 128), dtype=torch.int32, device=dev)
+    """(counts [tiles,8,128] zeroed, as the segments add into them;
+    words [tiles,L,kdim,8,128] or None, uninitialised: the kernel writes
+    every element)."""
+    counts = torch.zeros((tiles, 8, 128), dtype=torch.int32, device=dev)
     words = (torch.empty((tiles, 4 * Wb, kdim, 8, 128), dtype=torch.int32,
                          device=dev) if extract else None)
     return counts, words
@@ -117,7 +176,7 @@ def _outputs(dev: torch.device, kdim: int, Wb: int, tiles: int,
 def bitap_scan_generic(lo, hi, sm, em, halo, body, n0: int, n: int,
                        extract: bool):
     """(counts [tiles,8,128], words [tiles,L,K,8,128] or None)."""
-    global generic_launches
+    global generic_launches, generic_plan
     K, Hw, Wb, tiles = check_scan_args(lo, hi, sm, em, halo, body)
     dev = body.device
     if dev.type == "cpu":
@@ -125,12 +184,15 @@ def bitap_scan_generic(lo, hi, sm, em, halo, body, n0: int, n: int,
                                         extract)
     lib = LIBRARY.load()
     S = tiles * 1024
+    nseg, Ls = segment_plan(4 * Wb, 4 * Hw, S, 4, K, resident_threads(dev))
     counts, words = _outputs(dev, K, Wb, tiles, extract)
+    state, row = segment_state(dev, K, S * nseg)
     launch(dev, lib.bitap_generic_scan, "bitap_generic_scan",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
-           halo.data_ptr(), Hw, body.data_ptr(), Wb, S, n0, n,
-           counts.data_ptr(), ptr(words), ptr(spill_state(dev, K, S)))
+           halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg, n0, n,
+           counts.data_ptr(), ptr(words), ptr(state), row)
     generic_launches += 1
+    generic_plan = (S * nseg, nseg, Ls)
     return counts, words
 
 
@@ -149,7 +211,7 @@ def bitap_scan_baked(lo, hi, sm, em, end_limbs: Sequence[int], halo, body,
     """(counts [tiles,8,128], words [tiles,L,Ke,8,128] or None), with
     ``Ke = len(end_limbs)``; ``end_limbs`` lists the limbs whose end mask
     is nonzero, in order (the word axis follows it)."""
-    global baked_launches
+    global baked_launches, baked_plan
     K, Hw, Wb, tiles = check_scan_args(lo, hi, sm, em, halo, body)
     dev = body.device
     if dev.type == "cpu":
@@ -160,12 +222,15 @@ def bitap_scan_baked(lo, hi, sm, em, end_limbs: Sequence[int], halo, body,
         raise ValueError("a baked scan needs at least one end-bearing limb")
     lib = LIBRARY.load()
     S = tiles * 1024
+    nseg, Ls = segment_plan(4 * Wb, 4 * Hw, S, 4, K, resident_threads(dev))
     counts, words = _outputs(dev, Ke, Wb, tiles, extract)
+    state, row = segment_state(dev, K, S * nseg)
     launch(dev, lib.bitap_baked_scan, "bitap_baked_scan",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
-           Ke, halo.data_ptr(), Hw, body.data_ptr(), Wb, S,
-           counts.data_ptr(), ptr(words), ptr(spill_state(dev, K, S)))
+           Ke, halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg,
+           counts.data_ptr(), ptr(words), ptr(state), row)
     baked_launches += 1
+    baked_plan = (S * nseg, nseg, Ls)
     return counts, words
 
 

@@ -12,7 +12,9 @@ bucket chain ends at position ``t``.
 
 On a CPU tensor a wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises. Launches are counted in
-``generic_launches`` (G5) and ``baked_launches`` (G6).
+``generic_launches`` (G5) and ``baked_launches`` (G6), and the
+``(threads, P, Ls)`` of each one's last launch kept in ``generic_plan`` and
+``baked_plan``.
 """
 
 from __future__ import annotations
@@ -29,15 +31,19 @@ from .bitap_kernels import (
     launch,
     or_limbs,
     ptr,
-    spill_state,
+    resident_threads,
+    segment_plan,
+    segment_state,
     to_i32,
 )
 
 generic_launches = 0
 baked_launches = 0
+generic_plan: Optional[Tuple[int, int, int]] = None
+baked_plan: Optional[Tuple[int, int, int]] = None
 
 LIBRARY = _build.CudaLibrary("fingerprint.cu", {
-    "fp_bitmap": (P, P, P, P, I, P, I, P, I, I, I, LL, LL, P, P, P, P),
+    "fp_bitmap": (P, P, P, P, I, P, I, P, I, I, I, I, LL, LL, P, P, P, I, P),
 })
 
 
@@ -49,44 +55,51 @@ def reset_counts() -> None:
 
 def _bitmap(lo, hi, sm, em, halo, body,
             window: Optional[Tuple[int, int]]):
+    """((counts, bitmap), the launch's (threads, P, Ls) or None on the
+    CPU)."""
     K, Hw, Wb, tiles = check_scan_args(lo, hi, sm, em, halo, body)
     if Wb % 8:
         raise ValueError(f"the stream length 4*{Wb} must be a multiple of "
                          f"32 (one bitmap word per 32 positions)")
     dev = body.device
     if dev.type == "cpu":
-        return fp_bitmap_plain(lo, hi, sm, em, halo, body, window)
+        return fp_bitmap_plain(lo, hi, sm, em, halo, body, window), None
     lib = LIBRARY.load()
     S = tiles * 1024
-    counts = torch.empty((tiles, 8, 128), dtype=torch.int32, device=dev)
+    nseg, Ls = segment_plan(4 * Wb, 4 * Hw, S, 32, K, resident_threads(dev))
+    # Zeroed: the segments of a stream add into its count.
+    counts = torch.zeros((tiles, 8, 128), dtype=torch.int32, device=dev)
     bitmap = torch.empty((tiles, Wb // 8, 8, 128), dtype=torch.int32,
                          device=dev)
     n0, n = window if window is not None else (0, 0)
+    state, row = segment_state(dev, K, S * nseg)
     launch(dev, lib.fp_bitmap, "fp_bitmap",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
-           halo.data_ptr(), Hw, body.data_ptr(), Wb, S,
+           halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg,
            int(window is not None), n0, n, counts.data_ptr(),
-           bitmap.data_ptr(), ptr(spill_state(dev, K, S)))
-    return counts, bitmap
+           bitmap.data_ptr(), ptr(state), row)
+    return (counts, bitmap), (S * nseg, nseg, Ls)
 
 
 def fp_bitmap_generic(lo, hi, sm, em, halo, body, n0: int, n: int):
     """G5: (counts [tiles,8,128], bitmap [tiles,L/32,8,128]), positions
     masked to [n0, n)."""
-    global generic_launches
-    out = _bitmap(lo, hi, sm, em, halo, body, (n0, n))
-    if body.device.type == "cuda":
+    global generic_launches, generic_plan
+    out, plan = _bitmap(lo, hi, sm, em, halo, body, (n0, n))
+    if plan is not None:
         generic_launches += 1
+        generic_plan = plan
     return out
 
 
 def fp_bitmap_baked(lo, hi, sm, em, halo, body):
     """G6: (counts [tiles,8,128], bitmap [tiles,L/32,8,128]) of a
     strong-pad-byte padded haystack, no mask."""
-    global baked_launches
-    out = _bitmap(lo, hi, sm, em, halo, body, None)
-    if body.device.type == "cuda":
+    global baked_launches, baked_plan
+    out, plan = _bitmap(lo, hi, sm, em, halo, body, None)
+    if plan is not None:
         baked_launches += 1
+        baked_plan = plan
     return out
 
 

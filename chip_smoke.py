@@ -30,9 +30,12 @@ facade call; kernel-vs-plain launches are not counted):
      device verify, so the staged route; G3 and G4 in extract mode);
   8. dict1k: a 1,000-entry case-insensitive name dictionary over 64 MiB of
      prose, count and find_overlapping_iter (G6), and a 512 KiB count (G5);
-  9. timing of each kernel at those shapes; whole facade calls (host
-     clock, median of 7) with a torch.profiler trace of one call each for
-     the device's idle share; the parts of the 64 MiB staged count;
+  9. timing of each kernel at those shapes, with the thread count and the
+     segment plan (P segments of Ls bytes per stream) that the wrappers of
+     G1/G2/G5/G6 record at launch;
+     whole facade calls (host clock, median of 7) with a torch.profiler
+     trace of one call each for the device's idle share; the parts of the
+     64 MiB staged count;
  10. a `kernels` JSON line (launches from the facade calls, errors, times,
      bounds), then the card's name and power limit, then the final
      `{"ok": true, ...}` line.
@@ -73,7 +76,14 @@ PROSE_SYLLABLES = (
 MIB = 1 << 20
 HEADLINE_N = 594_915      # the reference's own headline corpus size
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-INT32_LANES_PER_SM = 64    # Hopper SM: 64 INT32 units
+# Per SM and clock on Hopper (CUDA C++ Programming Guide, throughput of
+# native arithmetic instructions, compute capability 9.0): 32-bit logic,
+# shifts and adds 64; population count 16; shared memory 32 four-byte
+# loads (128 bytes); four schedulers issue one warp instruction each.
+ALU_PER_CLK = 64
+POPC_PER_CLK = 16
+LDS_PER_CLK = 32
+ISSUE_PER_CLK = 128
 REPS = 20                  # kernel launches per timed CUDA graph
 RUNS = 7                   # facade calls per end-to-end median
 KERNELS = ("G1", "G2", "G3", "G4", "G5", "G6")
@@ -207,7 +217,7 @@ def ptxas_summary(report: str):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             raw = m.group(1)
-            k = re.search(r"_Z\d+(\w+?)ILi(\d+)E((?:Lb[01]E)*)", raw)
+            k = re.search(r"\d+([a-z_]+_kernel)ILi(\d+)E((?:Lb[01]E)*)", raw)
             if k:
                 flags = "".join(re.findall(r"Lb([01])E", k.group(3)))
                 name = f"{k.group(1)}<KR={k.group(2)}{',' if flags else ''}" \
@@ -217,6 +227,42 @@ def ptxas_summary(report: str):
         elif "spill" in ln or "Used" in ln:
             lines.append(f"  {name}: {ln.split(':', 1)[-1].strip()}")
     return lines
+
+
+def word_loop(sass: str, kernel: str):
+    """Opcode counts of the longest loop (a backward branch and the
+    instructions from its target to it) of the kernel function whose
+    mangled name holds ``kernel``, in ``cuobjdump -sass`` output."""
+    fn = next(f for f in sass.split("Function : ")[1:]
+              if kernel in f.split("\n", 1)[0])
+    ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", t))
+           for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    best = []
+    for i, (a, t) in enumerate(ins):
+        m = re.match(r"BRA\b.*0x([0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
+            body = ins[at[int(m.group(1), 16)]:i + 1]
+            best = body if len(body) > len(best) else best
+    counts = {}
+    for _, t in best:
+        op = t.split()[0].split(".")[0]
+        counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def step_issue(sass: str, kernel: str, a: int = 4, b: int = 8):
+    """(instructions per limb and byte step, by opcode) that a compiled
+    shift-AND step issues: the growth of the kernel's word loop from its
+    KR = a to its KR = b instantiation (``kernel`` holds %d for KR), over
+    b - a limbs times the byte steps of the loop, which the growth of the
+    shared-memory loads gives (two per limb and step)."""
+    ha, hb = word_loop(sass, kernel % a), word_loop(sass, kernel % b)
+    steps = (hb.get("LDS", 0) - ha.get("LDS", 0)) / (2 * (b - a))
+    d = {op: (hb.get(op, 0) - ha.get(op, 0)) / ((b - a) * steps)
+         for op in set(ha) | set(hb)}
+    d = {op: v for op, v in sorted(d.items(), key=lambda kv: -kv[1]) if v}
+    return sum(d.values()), d
 
 
 # ---------------------------------------------------------------------------
@@ -269,17 +315,33 @@ def kernel_ms(fn):
     return ms / (5 * REPS)
 
 
-def bound(K, n, lanes, out_per_byte, int_ops_per_s, extra_in=0):
+def step_cycles(K, popc):
+    """SM cycles per scanned byte that a shift-AND step over K limbs needs
+    at the least on Hopper, each class of operation over its own rate:
+    per byte, two integer operations (the two nybble indices); per limb, a
+    funnel shift (m << 1 with the carry of the limb below), two
+    three-input logic operations ((x | start) & lo & hi), two shared-memory
+    loads (lo, hi) and the output: one logic operation (any |= m & end),
+    or, for a count (``popc``), m & end, a popc and half an add (one
+    three-input add sums two popcs)."""
+    alu = 2 + K * (3 + (1.5 if popc else 1))
+    pop = K if popc else 0
+    lds = 2 * K
+    return max(alu / ALU_PER_CLK, pop / POPC_PER_CLK, lds / LDS_PER_CLK,
+               (alu + pop + lds) / ISSUE_PER_CLK)
+
+
+def bound(K, n, lanes, out_per_byte, sm_hz, popc, extra_in=0):
     """(bound_ms, bound_by) for a shift-AND scan of the n haystack bytes
     it must read: the larger of the bytes it must move (the n bytes, the
     tables and ``extra_in`` read once; per-lane outputs, 4 bytes each, and
     ``out_per_byte`` output bytes per scanned byte written once) over the
-    memory rate, and the int32 operations (2 + 8K per scanned byte) over
-    the int32 rate. Padding and the halo's warm-up bytes are layout
-    overhead, charged nothing."""
+    memory rate, and the operations (``step_cycles`` per scanned byte)
+    over ``sm_hz``, the SM cycles per second of the whole card. Padding and
+    the halo's warm-up bytes are layout overhead, charged nothing."""
     moved = n + 34 * K * 4 + extra_in + lanes * 4 + n * out_per_byte
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = n * (2 + 8 * K) / int_ops_per_s * 1e3
+    t_ops = n * step_cycles(K, popc) / sm_hz * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -349,16 +411,18 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = smi("name,power.limit")
     max_mhz = float(smi("clocks.max.sm").split()[0])
-    int_ops = INT32_LANES_PER_SM * torch.cuda.get_device_properties(
-        0).multi_processor_count * max_mhz * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_hz = sms * max_mhz * 1e6
     nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True).stdout
     log(f"[env] device: {kind} | nvidia-smi: {card}")
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     log(f"[env] nvcc: {nvcc.strip().splitlines()[-1]}")
-    log(f"[env] int32 rate {int_ops / 1e12:.2f} Tops/s "
-        f"(64 lanes x SMs x {max_mhz:.0f} MHz max SM clock)")
+    log(f"[env] {sms} SMs x {max_mhz:.0f} MHz max SM clock: 32-bit logic "
+        f"{ALU_PER_CLK * sm_hz / 1e12:.2f} Tops/s, popc "
+        f"{POPC_PER_CLK * sm_hz / 1e12:.2f}, shared loads "
+        f"{LDS_PER_CLK * sm_hz / 1e12:.2f} T/s")
     report["env"] = dict(kind=kind, smi=card, torch=torch.__version__,
                          cuda=torch.version.cuda, max_sm_mhz=max_mhz)
 
@@ -388,6 +452,24 @@ def main() -> int:
         for ln in ptxas_summary(rep):
             if "spill" in ln and " 0 bytes spill" not in ln:
                 log(f"[build] {lib.stem}:{ln}")
+    # What the compiled step issues per limb and byte step, warm-up and
+    # scanned steps alike, beside the least that the bound counts
+    # (step_cycles: 5 in a warm-up step, 6 in a scanned one, 7.5 with a
+    # popc).
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    report["sass"] = {}
+    for name, lib, kernel in (
+            ("G6", FK.LIBRARY, "bitmap_kernelILi%dELb0E"),
+            ("G2 count", TK.LIBRARY, "scan_kernelILi%dELb1ELb0E"),
+            ("G1 count", TK.LIBRARY, "scan_kernelILi%dELb0ELb0E")):
+        sass = subprocess.run([cuobjdump, "-sass", lib.path],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        total, by_op = step_issue(sass, kernel)
+        report["sass"][name] = dict(per_limb_byte=total, by_opcode=by_op)
+        log(f"[sass] {name} ({kernel % 8}, against KR=4): {total:.3f} "
+            f"instructions per limb and byte step: " + ", ".join(
+                f"{op} {v:.3f}" for op, v in by_op.items()))
 
     errs = {k: 0 for k in KERNELS}
     launches = {k: 0 for k in KERNELS}
@@ -502,6 +584,9 @@ def main() -> int:
     for ex in (False, True):
         err("G1", TK.bitap_scan_generic(*hx(ex)),
             TK.bitap_scan_generic_plain(*hx(ex)))
+    # The count window [0, 594,915) ends inside a segment of its stream.
+    _, _, Ls_h = TK.generic_plan
+    assert (HEADLINE_N % ph_h.L) % Ls_h, (ph_h.L, Ls_h)
 
     nopad = [bytes(range(8 * i, 8 * i + 8)) for i in range(32)]
     ac_np = AhoCorasick(nopad, device=dev)
@@ -526,9 +611,13 @@ def main() -> int:
     for ex in (False, True):
         a = eng_k._args() + (ph_k.halo_a, ph_k.body, 0, len(hay_k), ex)
         err("G1", TK.bitap_scan_generic(*a), TK.bitap_scan_generic_plain(*a))
-    log(f"[G1] 594,915 B count and single-pass find_iter, 64 MiB no pad "
-        f"byte K={eng_np.tables.k}, K=229 at 1 MiB: all = host truth; "
-        f"kernel = plain ({time.time() - t0:.1f} s)")
+    _, P_k, _ = TK.generic_plan
+    assert P_k > 1
+    log(f"[G1] 594,915 B count and single-pass find_iter (window ending "
+        f"{(HEADLINE_N % ph_h.L) % Ls_h} B into a {Ls_h}-byte segment), "
+        f"64 MiB no pad byte K={eng_np.tables.k}, K=229 at 1 MiB (spill "
+        f"path, P={P_k}): all = host truth; kernel = plain "
+        f"({time.time() - t0:.1f} s)")
 
     # 6. Fingerprint fused extract of the five names ----------------------------
     t0 = time.time()
@@ -623,15 +712,21 @@ def main() -> int:
             raise AssertionError(f"{k} was never launched on a facade path")
 
     # 9. Timing ------------------------------------------------------------------
-    def row(name, K, n, lanes, out_per_byte, kern, plain, extra_in=0):
+    def row(name, K, n, lanes, out_per_byte, kern, plain, popc=True,
+            extra_in=0, seg=None):
+        """One timed kernel; ``seg`` reads the (threads, P, Ls) that a
+        segmented kernel's wrapper recorded at its last launch, None for
+        one thread per lane (G3, G4)."""
         ms = kernel_ms(kern)
-        bms, by = bound(K, n, lanes, out_per_byte, int_ops, extra_in)
+        threads, P, Ls = seg() if seg else (lanes, 1, None)
+        bms, by = bound(K, n, lanes, out_per_byte, sm_hz, popc, extra_in)
         r = dict(name=name, K=K, bytes=n, ms=ms, plain_ms=events_ms(plain),
                  bound_ms=bms, bound_by=by, gbps=n / ms / 1e6,
-                 share_of_bound=bms / ms)
+                 share_of_bound=bms / ms, threads=threads, P=P, Ls=Ls)
         log(f"[time] {name}: {ms:.4f} ms ({r['gbps']:.1f} GB/s), plain "
             f"{r['plain_ms']:.1f} ms, bound {bms:.4f} ms ({by}), "
-            f"{100 * bms / ms:.1f}% of bound | {card}")
+            f"{100 * bms / ms:.1f}% of bound; {threads} threads"
+            + (f", P={P} x Ls={Ls} B" if seg else "") + f" | {card}")
         return r
 
     K3, Ke = eng.tables.k, len(eng.tables.end_limbs)
@@ -642,28 +737,47 @@ def main() -> int:
     a64 = (lo, hi, sm, em, eng.tables.end_limbs, ph64.halo_a, ph64.body,
            False)
     err("G2", TK.bitap_scan_baked(*a64), TK.bitap_scan_baked_plain(*a64))
+    Kk = eng_k.tables.k
+    a_k = eng_k._args() + (ph_k.halo_a, ph_k.body, 0, len(hay_k), False)
+    g1, g2 = (lambda: TK.generic_plan), (lambda: TK.baked_plan)
+    g5, g6 = (lambda: FK.generic_plan), (lambda: FK.baked_plan)
     rows = {
         "G1": row(f"G1 count 594,915 B, K={K3}", K3, HEADLINE_N, ph_h.tiles
                   * 1024, 0, lambda: TK.bitap_scan_generic(*hx(False)),
-                  lambda: TK.bitap_scan_generic_plain(*hx(False))),
+                  lambda: TK.bitap_scan_generic_plain(*hx(False)),
+                  seg=g1),
+        "G1 extract": row(f"G1 extract 594,915 B (find_iter), K={K3}", K3,
+                          HEADLINE_N, ph_h.tiles * 1024, 4 * K3,
+                          lambda: TK.bitap_scan_generic(*hx(True)),
+                          lambda: TK.bitap_scan_generic_plain(*hx(True)),
+                          seg=g1),
         "G1 no pad": row(f"G1 count 64 MiB no pad byte, K={eng_np.tables.k}",
                          eng_np.tables.k, len(hay_np), ph_np.tiles * 1024, 0,
                          lambda: TK.bitap_scan_generic(*a_np),
-                         lambda: TK.bitap_scan_generic_plain(*a_np)),
+                         lambda: TK.bitap_scan_generic_plain(*a_np),
+                         seg=g1),
+        "G1 K=229": row(f"G1 count 1 MiB, K={Kk} (spill path)", Kk,
+                        len(hay_k), ph_k.tiles * 1024, 0,
+                        lambda: TK.bitap_scan_generic(*a_k),
+                        lambda: TK.bitap_scan_generic_plain(*a_k),
+                        seg=g1),
         "G2": row(f"G2 count 2 MiB, K={K3}", K3, len(hay2), ph2.tiles * 1024,
                   0, lambda: TK.bitap_scan_baked(*a2(False)),
-                  lambda: TK.bitap_scan_baked_plain(*a2(False))),
+                  lambda: TK.bitap_scan_baked_plain(*a2(False)),
+                  seg=g2),
         "G2 64 MiB": row(f"G2 count 64 MiB (PR 1's shape), K={K3}", K3,
                          len(hay64), ph64.tiles * 1024, 0,
                          lambda: TK.bitap_scan_baked(*a64),
-                         lambda: TK.bitap_scan_baked_plain(*a64)),
+                         lambda: TK.bitap_scan_baked_plain(*a64),
+                         seg=g2),
         "G2 extract": row(f"G2 extract 8 MiB chunk, Ke={Ke}", K3,
                           chunk.n, chunk.tiles * 1024, 4 * Ke,
                           lambda: TK.bitap_scan_baked(*ax(True)),
-                          lambda: TK.bitap_scan_baked_plain(*ax(True))),
+                          lambda: TK.bitap_scan_baked_plain(*ax(True)),
+                          seg=g2),
         "G3": row(f"G3 flags 64 MiB, Kf={st.fp.k}, {ns} streams", st.fp.k,
                   sph.n, ns, 0, lambda: SK.staged_flags(*fargs),
-                  lambda: SK.staged_flags_plain(*fargs)),
+                  lambda: SK.staged_flags_plain(*fargs), popc=False),
         "G4": row(f"G4 count, {ncand64} candidates x {L64} B in {cap64} "
                   f"lanes, K={st.full.k}", st.full.k, ncand64 * L64, cap64,
                   0, lambda: SK.staged_gathered(*gargs(False)),
@@ -679,19 +793,23 @@ def main() -> int:
         "G5": row(f"G5 bitmap 594,915 B, five names, K={fp.tables.k}",
                   fp.tables.k, HEADLINE_N, phh.tiles * 1024, 1 / 8,
                   lambda: FK.fp_bitmap_generic(*fh, 0, HEADLINE_N),
-                  lambda: FK.fp_bitmap_plain(*fh, (0, HEADLINE_N))),
+                  lambda: FK.fp_bitmap_plain(*fh, (0, HEADLINE_N)),
+                  popc=False, seg=g5),
         "G5 dict1k": row(f"G5 bitmap 512 KiB dict1k, K={fpd.tables.k}",
                          fpd.tables.k, len(hay_d5), phd5.tiles * 1024, 1 / 8,
                          lambda: FK.fp_bitmap_generic(*fd5, 0, len(hay_d5)),
-                         lambda: FK.fp_bitmap_plain(*fd5, (0, len(hay_d5)))),
+                         lambda: FK.fp_bitmap_plain(*fd5, (0, len(hay_d5))),
+                         popc=False, seg=g5),
         "G6": row(f"G6 bitmap 64 MiB dict1k, K={fpd.tables.k}",
                   fpd.tables.k, len(hay_d), phd.tiles * 1024, 1 / 8,
                   lambda: FK.fp_bitmap_baked(*fd),
-                  lambda: FK.fp_bitmap_plain(*fd, None)),
+                  lambda: FK.fp_bitmap_plain(*fd, None),
+                  popc=False, seg=g6),
         "G6 names": row(f"G6 bitmap 16 MiB five names, K={fp.tables.k}",
                         fp.tables.k, len(hay16), ph16.tiles * 1024, 1 / 8,
                         lambda: FK.fp_bitmap_baked(*f16),
-                        lambda: FK.fp_bitmap_plain(*f16, None)),
+                        lambda: FK.fp_bitmap_plain(*f16, None),
+                        popc=False, seg=g6),
     }
     report["timings"] = rows
     report["launches"] = launches
@@ -801,7 +919,8 @@ def main() -> int:
                     max_abs_err=errs[k], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     share=r["share_of_bound"], library_ms=None,
-                    shape=r["name"])
+                    shape=r["name"], threads=r["threads"], P=r["P"],
+                    Ls=r["Ls"])
     kernels = [
         entry("G1", "bitap_generic_scan", "bitap.cu",
               "ahocorasick_tpu/ops/bitap.py:284", rows["G1"]),

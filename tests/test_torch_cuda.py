@@ -208,3 +208,99 @@ def test_facade_staged_and_fingerprint_routes(dev):
     _reset()
     assert big.count_matches(h) == dtruth.count_matches(h)
     assert [c > 0 for c in _counts()] == [False] * 5 + [True]
+
+
+# ---------------------------------------------------------------------------
+# The segment plan of G1/G2/G5/G6 at shapes that stress it
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("extract", [False, True])
+def test_one_tile_most_segments(dev, extract):
+    """G2 over one tile of 2048-byte streams, where the plan is finest
+    (P = 64 segments of H = 32 bytes); the haystack and so the extracted
+    range end 28 bytes into a segment."""
+    eng = TB.BitapEngine(NAMES, False, dev)
+    hay = _hay((2 << 20) - 100, 8, NAMES)
+    ph = eng.prepare(hay)
+    assert ph.baked and ph.tiles == 1
+    args = eng._args()[:4] + (eng.tables.end_limbs, ph.halo_a, ph.body,
+                              extract)
+    _same(TK.bitap_scan_baked(*args), TK.bitap_scan_baked_plain(*args))
+    threads, P, Ls = TK.baked_plan
+    assert (P, Ls) == (64, 32) and threads == 64 * 1024 and len(hay) % Ls
+
+
+def test_one_tile_bitmap_most_segments(dev):
+    """G5 over one tile of a 600-entry dictionary at 512 KiB."""
+    pats = _dictionary(9)
+    eng = TF.FingerprintEngine(pats, True, dev)
+    hay = _hay(512 * 1024, 9, pats)
+    ph = eng.prepare(hay)
+    assert ph.tiles == 1
+    args = eng._args() + (ph.halo_a, ph.body)
+    _same(FK.fp_bitmap_generic(*args, 0, len(hay)),
+          FK.fp_bitmap_plain(*args, (0, len(hay))))
+    assert FK.generic_plan[1] > 1
+
+
+@pytest.mark.parametrize("extract", [False, True])
+def test_window_ends_mid_segment(dev, extract):
+    """G1 and G5 with a window [n0, n) whose both ends fall inside
+    segments."""
+    eng = TB.BitapEngine(NAMES, False, dev)
+    hay = _hay(300_000, 10, NAMES)
+    ph = eng.prepare(hay, baked=False)
+    n0, n = 5, len(hay) - 11
+    args = eng._args() + (ph.halo_a, ph.body, n0, n, extract)
+    _same(TK.bitap_scan_generic(*args), TK.bitap_scan_generic_plain(*args))
+    _, P, Ls = TK.generic_plan
+    assert P > 1 and (n % ph.L) % Ls and n0 % Ls
+    fp = TF.FingerprintEngine(NAMES, False, dev)
+    fph = fp.prepare(hay)
+    fargs = fp._args() + (fph.halo_a, fph.body)
+    _same(FK.fp_bitmap_generic(*fargs, n0, n),
+          FK.fp_bitmap_plain(*fargs, (n0, n)))
+    _, P, Ls = FK.generic_plan
+    assert P > 1 and (n % fph.L) % Ls
+
+
+def test_spill_path_with_segments(dev):
+    """K = 229 limbs (the global-scratch path) at 1 MiB, P > 1: counts and
+    end words equal the plain version."""
+    pats = SETS["k229"]
+    eng = TB.BitapEngine(pats, False, dev)
+    assert eng.tables.k == 229
+    hay = _hay(1 << 20, 11, pats)
+    ph = eng.prepare(hay, baked=False)
+    for extract in (False, True):
+        args = eng._args() + (ph.halo_a, ph.body, 0, len(hay), extract)
+        _same(TK.bitap_scan_generic(*args),
+              TK.bitap_scan_generic_plain(*args))
+        assert TK.generic_plan[1] > 1
+
+
+@pytest.mark.parametrize("extract", [False, True])
+def test_padded_limbs(dev, extract):
+    """K between the register buckets: five more names give K = 5, run in
+    the 8-limb bucket with three inert limbs (G1 and G2), and a 600-entry
+    dictionary gives K = 7 (G6)."""
+    pats = NAMES + [b"Mycroft Holmes", b"Mrs Hudson", b"Mary Morstan",
+                    b"Colonel Moran", b"Baker Street"]
+    eng = TB.BitapEngine(pats, False, dev)
+    assert eng.tables.k == 5
+    hay = _hay(1 << 20, 12, pats)
+    lo, hi, sm, em = eng._args()
+    ph = eng.prepare(hay, baked=False)
+    args = (lo, hi, sm, em, ph.halo_a, ph.body, 3, len(hay) - 5, extract)
+    _same(TK.bitap_scan_generic(*args), TK.bitap_scan_generic_plain(*args))
+    ph = eng.prepare(hay)
+    assert ph.baked
+    args = (lo, hi, sm, em, eng.tables.end_limbs, ph.halo_a, ph.body,
+            extract)
+    _same(TK.bitap_scan_baked(*args), TK.bitap_scan_baked_plain(*args))
+    fp = TF.FingerprintEngine(_dictionary(9), True, dev)
+    assert fp.tables.k == 7
+    fph = fp.prepare(_hay(1 << 20, 13, _dictionary(9)))
+    assert fph.baked
+    fargs = fp._args() + (fph.halo_a, fph.body)
+    _same(FK.fp_bitmap_baked(*fargs), FK.fp_bitmap_plain(*fargs, None))
+

@@ -1,0 +1,314 @@
+"""The segment decomposition of the port's scan kernels, pinned on the CPU.
+
+The Hopper kernels G1/G2 (`csrc/bitap.cu`) and G5/G6 (`csrc/fingerprint.cu`)
+cut each L-byte stream into P segments of Ls = L / P bytes, with the plan
+from `segment_plan`, and give each (segment, stream) its own thread:
+segment 0 warms up over the halo, segment j > 0 over the H bytes of the
+stream before it; only segment 0 of stream 0 resets its state after the
+warm-up; the G1/G5 window masks position ``s*L + j*Ls + t``. Here a plain
+scan built segment by segment from `PlainScan` with those rules must equal
+the whole-stream plain versions (`scan_plain`, `fp_bitmap_plain`), which
+the other test files hold against the JAX package's Pallas kernels. Every
+output is an integer: the tolerance is exact equality.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ahocorasick_tpu_torch.ops import bitap as TB
+from ahocorasick_tpu_torch.ops import fingerprint as TF
+from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
+from ahocorasick_tpu_torch.ops.bitap_kernels import (
+    MAX_REG_LIMBS,
+    MAX_SPILL_BYTES,
+    PlainScan,
+    bitap_scan_baked_plain,
+    bitap_scan_generic_plain,
+    or_limbs,
+    popcount32,
+    segment_plan,
+    to_i32,
+)
+
+NAMES = [b"Sherlock Holmes", b"John Watson", b"Irene Adler",
+         b"Inspector Lestrade", b"Professor Moriarty"]
+K65 = [bytes([i]) + b"ab" for i in range(92)]  # 65 limbs: the spill path
+# Resident thread slots of an H100 SXM (132 SMs x 2048 threads), which the
+# wrappers read from the card.
+RESIDENT_THREADS = 132 * 2048
+
+
+def plan(L, H, S, align, K):
+    return segment_plan(L, H, S, align, K, RESIDENT_THREADS)
+
+
+# ---------------------------------------------------------------------------
+# Segment by segment, with the kernels' rules
+# ---------------------------------------------------------------------------
+def _segments(lo, hi, sm, em, halo, body, P):
+    """Yield (PlainScan, first position in the stream, body words) for each
+    segment, the scan already warmed up (and reset for stream 0 of
+    segment 0)."""
+    S = body.shape[1] * 128
+    Hw, Wb = halo.shape[0], body.shape[0]
+    assert Wb % P == 0
+    nw = Wb // P
+    for j in range(P):
+        ps = PlainScan(lo, hi, sm, em, S)
+        ps.halo(halo if j == 0 else body[j * nw - Hw:j * nw])
+        if j == 0:
+            ps.m[:, 0] = 0
+        yield ps, 4 * j * nw, body[j * nw:(j + 1) * nw]
+
+
+def segmented_scan(lo, hi, sm, em, halo, body, window, out_limbs, extract,
+                   P):
+    """(counts, words) of G1 (``window`` = (n0, n)) or G2 (None)."""
+    S = body.shape[1] * 128
+    tiles, L = S // 1024, 4 * body.shape[0]
+    pos0 = torch.arange(S, dtype=torch.int64) * L
+    counts = torch.zeros(S, dtype=torch.int64)
+    kd = len(out_limbs)
+    words = torch.full((L, kd, S), -1, dtype=torch.int64)
+    for ps, t0, seg in _segments(lo, hi, sm, em, halo, body, P):
+        for t, b in ps.bytes(seg):
+            h = ps.step(b) & ps.em
+            if window is not None:
+                pos = pos0 + t0 + t
+                h = h * ((pos >= window[0]) & (pos < window[1]))
+            counts += popcount32(h).sum(0)
+            words[t0 + t] = h[out_limbs]
+    counts32 = counts.to(torch.int32).reshape(tiles, 8, 128)
+    if not extract:
+        return counts32, None
+    words = words.reshape(L, kd, tiles, 1024).permute(2, 0, 1, 3)
+    return counts32, to_i32(words.reshape(tiles, L, kd, 8, 128))
+
+
+def segmented_bitmap(lo, hi, sm, em, halo, body, window, P):
+    """(counts, bitmap) of G5 (``window`` = (n0, n)) or G6 (None)."""
+    S = body.shape[1] * 128
+    tiles, L = S // 1024, 4 * body.shape[0]
+    pos0 = torch.arange(S, dtype=torch.int64) * L
+    counts = torch.zeros(S, dtype=torch.int64)
+    bitmap = torch.full((L // 32, S), -1, dtype=torch.int64)
+    for ps, t0, seg in _segments(lo, hi, sm, em, halo, body, P):
+        assert t0 % 32 == 0
+        acc = torch.zeros(S, dtype=torch.int64)
+        for t, b in ps.bytes(seg):
+            hit = (or_limbs(ps.step(b) & ps.em) != 0).to(torch.int64)
+            if window is not None:
+                pos = pos0 + t0 + t
+                hit = hit * ((pos >= window[0]) & (pos < window[1]))
+            acc |= hit << (t % 32)
+            counts += hit
+            if t % 32 == 31:
+                bitmap[(t0 + t) // 32] = acc
+                acc = torch.zeros_like(acc)
+    bitmap = bitmap.reshape(L // 32, tiles, 1024).permute(1, 0, 2)
+    return (counts.to(torch.int32).reshape(tiles, 8, 128),
+            to_i32(bitmap.reshape(tiles, L // 32, 8, 128)))
+
+
+# ---------------------------------------------------------------------------
+# Inputs
+# ---------------------------------------------------------------------------
+def _hay(n, seed, pats, at=()):
+    """Printable random bytes with 60 planted patterns, and pats[0] at each
+    position of ``at``."""
+    rng = np.random.default_rng(seed)
+    buf = bytearray(rng.integers(32, 127, n, dtype=np.uint8).tobytes())
+    for i, pos in enumerate(rng.integers(0, n - 32, 60)):
+        p = pats[i % len(pats)]
+        buf[pos:pos + len(p)] = p
+    for pos in at:
+        buf[pos:pos + len(pats[0])] = pats[0]
+    return bytes(buf)
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            assert torch.equal(g, w)
+
+
+def _shape(ph):
+    """(L, H, S) of a prepared haystack."""
+    return 4 * ph.body.shape[0], 4 * ph.halo_a.shape[0], ph.tiles * 1024
+
+
+# ---------------------------------------------------------------------------
+# The plan
+# ---------------------------------------------------------------------------
+# (L, H, S, align, K) of the main path's launches and of edge shapes.
+PLAN_SHAPES = [
+    (2048, 32, 1024, 4, 3),       # 2 MiB count, one tile
+    (2048, 8, 32768, 32, 8),      # 64 MiB dict1k
+    (128, 32, 5120, 4, 3),        # 594,915 B
+    (2048, 32, 4096, 4, 3),       # an 8 MiB extraction chunk
+    (1024, 4, 1024, 4, 229),      # K = 229 at 1 MiB: the spill path
+    (512, 4, 131072, 4, 1),       # beyond the resident slots already
+    (64, 32, 1024, 4, 3),         # L = 2H: two segments of H
+    (32, 32, 1024, 32, 1),        # L = H: no room
+    (96, 8, 1024, 32, 2),         # L not a power of two
+]
+
+
+@pytest.mark.parametrize("L,H,S,align,K", PLAN_SHAPES)
+def test_segment_plan_invariants(L, H, S, align, K):
+    P, Ls = plan(L, H, S, align, K)
+    assert P * Ls == L and (L // 4) % P == 0  # P divides Wb
+    assert Ls % align == 0
+    assert P == 1 or Ls >= H
+    assert P == 1 or S * P <= RESIDENT_THREADS
+    if K > MAX_REG_LIMBS:
+        assert P == 1 or 4 * K * S * P <= MAX_SPILL_BYTES
+    # No larger valid P was left out.
+    for Q in range(P + 1, L // align + 1):
+        if (L // align) % Q == 0 and L // Q >= H:
+            assert S * Q > RESIDENT_THREADS or (
+                K > MAX_REG_LIMBS and 4 * K * S * Q > MAX_SPILL_BYTES)
+
+
+def test_segment_plan_main_path_shapes():
+    assert plan(2048, 32, 1024, 4, 3) == (64, 32)
+    assert plan(2048, 8, 32768, 32, 8) == (8, 256)
+    assert plan(128, 32, 5120, 4, 3) == (4, 32)
+    assert plan(32, 32, 1024, 4, 3) == (1, 32)
+    assert plan(1024, 4, 1024, 4, 229) == (32, 32)
+    # A card with fewer resident slots gets fewer segments.
+    assert plan(2048, 8, 32768, 32, 8) > segment_plan(2048, 8, 32768, 32, 8,
+                                                      RESIDENT_THREADS // 2)
+    with pytest.raises(ValueError):
+        plan(100, 8, 1024, 32, 1)
+
+
+# ---------------------------------------------------------------------------
+# G1/G2 by segments against the whole-stream plain version
+# ---------------------------------------------------------------------------
+def _scan_case(name):
+    """(engine, haystack, baked, window or None) of a case."""
+    if name == "names_one_tile_min_ls":
+        # One tile, L = 128 and H = 32: the plan's Ls is its minimum, H.
+        hay = _hay(100_000, 1, NAMES, at=(0, 30, 62, 126))
+        return TB.BitapEngine(NAMES, False, "cpu"), hay, False, (0, len(hay))
+    if name == "names_baked":
+        hay = _hay(100_000, 2, NAMES, at=(0, 60))
+        return TB.BitapEngine(NAMES, False, "cpu"), hay, True, None
+    if name == "window_mid_segment":
+        hay = _hay(120_000, 3, NAMES, at=(5,))
+        return TB.BitapEngine(NAMES, False, "cpu"), hay, False, (
+            9, len(hay) - 1000)
+    if name == "k65":
+        hay = _hay(30_000, 4, K65, at=(0, 6, 7, 14))
+        return TB.BitapEngine(K65, False, "cpu"), hay, False, (0, len(hay))
+    raise KeyError(name)
+
+
+SCAN_CASES = ["names_one_tile_min_ls", "names_baked", "window_mid_segment",
+              "k65"]
+
+
+def _scan_args(name):
+    eng, hay, baked, window = _scan_case(name)
+    ph = eng.prepare(hay, baked=baked)
+    assert ph.baked == baked
+    limbs = (eng.tables.end_limbs if baked
+             else list(range(eng.tables.k)))
+    return eng, ph, window, limbs
+
+
+def _scan_want(eng, ph, window, limbs, extract):
+    lo, hi, sm, em = eng._args()
+    if window is None:
+        return bitap_scan_baked_plain(lo, hi, sm, em, limbs, ph.halo_a,
+                                      ph.body, extract)
+    return bitap_scan_generic_plain(lo, hi, sm, em, ph.halo_a, ph.body,
+                                    window[0], window[1], extract)
+
+
+@pytest.mark.parametrize("extract", [False, True])
+@pytest.mark.parametrize("name", SCAN_CASES)
+def test_segmented_scan_equals_whole_stream(name, extract):
+    """The plan's P: counts and end words equal the whole-stream scan."""
+    eng, ph, window, limbs = _scan_args(name)
+    L, H, S = _shape(ph)
+    P, Ls = plan(L, H, S, 4, eng.tables.k)
+    assert P > 1
+    if name == "names_one_tile_min_ls":
+        assert ph.tiles == 1 and Ls == H
+    if name == "window_mid_segment":
+        assert (window[1] % L) % Ls != 0  # the window ends inside a segment
+    got = segmented_scan(*eng._args(), ph.halo_a, ph.body, window, limbs,
+                         extract, P)
+    want = _scan_want(eng, ph, window, limbs, extract)
+    assert int(want[0].sum()) > 0
+    _same(got, want)
+
+
+@pytest.mark.parametrize("name", ["names_one_tile_min_ls", "k65"])
+def test_segmented_scan_any_segment_length(name):
+    """The warm-up argument holds for every Ls >= H that divides L, not
+    only the plan's: the decomposition is exact wherever the plan lands."""
+    eng, ph, window, limbs = _scan_args(name)
+    L, H, S = _shape(ph)
+    want = _scan_want(eng, ph, window, limbs, True)
+    tried = 0
+    for P in range(2, L // 4 + 1):
+        if (L // 4) % P or L // P < H:
+            continue
+        got = segmented_scan(*eng._args(), ph.halo_a, ph.body, window,
+                             limbs, True, P)
+        _same(got, want)
+        tried += 1
+    assert tried >= 2
+
+
+def test_stream0_segments():
+    """Only segment 0 of stream 0 starts from no history: a match at
+    position 0 counts, and those that straddle the boundaries of stream
+    0's segments (bytes 30-44 and 62-76, segments of 32 bytes) count
+    once each."""
+    eng, ph, window, limbs = _scan_args("names_one_tile_min_ls")
+    L, H, S = _shape(ph)
+    P, Ls = plan(L, H, S, 4, eng.tables.k)
+    got, _ = segmented_scan(*eng._args(), ph.halo_a, ph.body, window,
+                            limbs, False, P)
+    want, _ = _scan_want(eng, ph, window, limbs, False)
+    assert Ls == 32 and int(want[0, 0, 0]) >= 3
+    assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# G5/G6 by segments against the whole-stream plain version
+# ---------------------------------------------------------------------------
+def _dictionary(seed, count=200):
+    rng = np.random.default_rng(seed)
+    pats = set()
+    while len(pats) < count:
+        ln = int(rng.integers(4, 13))
+        pats.add(rng.integers(97, 123, ln, dtype=np.uint8).tobytes())
+    return sorted(pats)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["G6", "G5"])
+@pytest.mark.parametrize("name", ["names", "dictionary"])
+def test_segmented_bitmap_equals_whole_stream(name, masked):
+    pats = NAMES if name == "names" else _dictionary(5)
+    eng = TF.FingerprintEngine(pats, name == "dictionary", "cpu")
+    hay = _hay(150_000, 6, pats, at=(0, 250))
+    ph = eng.prepare(hay)
+    L, H, S = _shape(ph)
+    P, Ls = plan(L, H, S, 32, eng.tables.k)
+    assert P > 1 and Ls % 32 == 0
+    window = (3, len(hay) - 77) if masked else None
+    if masked:
+        assert (window[1] % L) % Ls != 0
+    args = eng._args() + (ph.halo_a, ph.body)
+    got = segmented_bitmap(*args, window, P)
+    want = FK.fp_bitmap_plain(*args, window)
+    assert int(want[0].sum()) > 0
+    _same(got, want)
