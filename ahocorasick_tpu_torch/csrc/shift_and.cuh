@@ -12,24 +12,25 @@
 // a global scratch, one row per limb coalesced across threads, and the
 // tables are read through the read-only cache.
 //
-// Lanes are laid out as in the JAX package: words stream-major,
-// word[w][s], so a warp's 32 loads of one word row are one coalesced
-// 128-byte transaction.
-//
-// Two thread mappings use the core:
-//   - one thread per stream (kThreads per block): G3 and G4 (staged.cu),
-//     walk_halo then the body;
-//   - one thread per (segment, stream) (kSegThreads per block): G1/G2
-//     (bitap.cu) and G5/G6 (fingerprint.cu). Each stream is cut into P
-//     segments of Ls bytes (segment_plan in ops/bitap_kernels.py); a
-//     segment warms up over the H bytes before it, which is exact because
-//     a state bit at chain offset i depends only on the last i + 1 bytes,
-//     whatever the state before them, and i <= max_len - 1 <= H: the
-//     warm-up plus the byte itself cover them. Words reach the byte loop
-//     through a per-thread cp.async ring (walk_rows), so loads stay in
-//     flight while the thread computes, and the step (step_padded) runs
-//     every limb of the bucket with no per-limb branch. What bounds these
-//     kernels is instruction issue (bitap.cu, fingerprint.cu).
+// Every kernel runs one thread per (segment, stream) (kSegThreads per
+// block). Each L-byte stream is cut into P segments of Ls bytes
+// (segment_plan in ops/bitap_kernels.py); a segment warms up over the H
+// bytes before it, which is exact because a state bit at chain offset i
+// depends only on the last i + 1 bytes, whatever the state before them,
+// and i <= max_len - 1 <= H: the warm-up plus the byte itself cover them.
+// The step (step_padded) runs every limb of the bucket with no per-limb
+// branch. Words reach the byte loop through a per-thread cp.async ring in
+// shared memory, so loads stay in flight while the thread computes. Two
+// layouts feed it:
+//   - stream-major words, word[w][s], as the JAX package lays them out
+//     (G1/G2, G5/G6: walk_rows). A warp's 32 loads of one word row are one
+//     coalesced 128-byte transaction.
+//   - the uploaded words as they lie, row s = stream s (G3/G4: walk_run).
+//     A segment's walk, warm-up included, is then one contiguous run of
+//     words, copied 32 bytes (one sector) per ring slot, so each sector
+//     is fetched once although a warp's 32 runs lie L bytes apart.
+// What bounds these kernels is instruction issue (bitap.cu, staged.cu,
+// fingerprint.cu).
 
 #pragma once
 
@@ -40,7 +41,6 @@
 
 namespace shift_and {
 
-constexpr int kThreads = 64;   // threads (= streams) per block
 constexpr int kLanes = 1024;   // streams per [8, 128] tile
 
 // Limb state and per-limb constants: registers for KR > 0 (K <= KR),
@@ -78,119 +78,19 @@ struct Limbs {
   }
 };
 
-// Limb loop: fully unrolled over the bucket KR with a guard, or a plain
-// run-time loop on the spill path. Needs `K` and `KR` in scope.
-#define FOR_LIMBS(k)                                          \
-  _Pragma("unroll") for (int k = 0; k < (KR > 0 ? KR : K); ++k) \
-      if (KR == 0 || k < K)
-
-template <int KR>
-__device__ __forceinline__ uint32_t charmask(const uint32_t* LO,
-                                             const uint32_t* HI, int k,
-                                             uint32_t b) {
-  if constexpr (KR > 0) {
-    return LO[k * 16 + (b & 15u)] & HI[k * 16 + (b >> 4)];
-  } else {
-    return __ldg(LO + k * 16 + (b & 15u)) & __ldg(HI + k * 16 + (b >> 4));
-  }
-}
-
-// The nybble tables: copied into the block's shared memory `tab` for
-// KR > 0, read from global memory otherwise. Every thread of the block
-// must call this before any of them returns.
-template <int KR>
-__device__ __forceinline__ void load_tables(const uint32_t* lo,
-                                            const uint32_t* hi, int K,
-                                            uint32_t* tab,
-                                            const uint32_t*& LO,
-                                            const uint32_t*& HI) {
-  LO = lo;
-  HI = hi;
-  if constexpr (KR > 0) {
-    for (int i = threadIdx.x; i < K * 16; i += kThreads) {
-      tab[i] = lo[i];
-      tab[K * 16 + i] = hi[i];
-    }
-    __syncthreads();
-    LO = tab;
-    HI = tab + K * 16;
-  }
-}
-
-// Zero state; start/end masks into registers (KR > 0).
-template <int KR>
-__device__ __forceinline__ void init(Limbs<KR>& st, const uint32_t* sm,
-                                     const uint32_t* em, uint32_t* state,
-                                     int s, int S, int K) {
-  st.g = state + s;
-  st.gsm = sm;
-  st.gem = em;
-  st.S = S;
-  FOR_LIMBS(k) {
-    st.at(k) = 0u;
-    if constexpr (KR > 0) {
-      st.sm[k] = sm[k];
-      st.em[k] = em[k];
-    }
-  }
-}
-
-template <int KR>
-__device__ __forceinline__ void reset(Limbs<KR>& st, int K) {
-  FOR_LIMBS(k) { st.at(k) = 0u; }
-}
-
-// Advance every limb by byte b; on_limb(k, m') sees each new limb word in
-// limb order.
-template <int KR, typename F>
-__device__ __forceinline__ void step(Limbs<KR>& st, const uint32_t* LO,
-                                     const uint32_t* HI, int K, uint32_t b,
-                                     F&& on_limb) {
-  uint32_t carry = 0u;
-  FOR_LIMBS(k) {
-    const uint32_t old = st.at(k);
-    const uint32_t nm = ((old << 1) | carry | st.start(k)) &
-                        charmask<KR>(LO, HI, k, b);
-    carry = old >> 31;
-    st.at(k) = nm;
-    on_limb(k, nm);
-  }
-}
-
-// Walk the Hw halo words of stream s (the tail of stream s-1), calling
-// on_limb as `step` does.
-template <int KR, typename F>
-__device__ __forceinline__ void walk_halo(Limbs<KR>& st, const uint32_t* LO,
-                                          const uint32_t* HI, int K,
-                                          const uint32_t* halo, int Hw,
-                                          int s, int S, F&& on_limb) {
-  for (int w = 0; w < Hw; ++w) {
-    const uint32_t word = halo[static_cast<size_t>(w) * S + s];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      step<KR>(st, LO, HI, K, (word >> (8 * jj)) & 255u, on_limb);
-    }
-  }
-}
-
-// Dynamic shared memory of a block: lo and hi for KR > 0, none otherwise.
-inline size_t shmem_bytes(int KR, int K) {
-  return KR > 0 ? static_cast<size_t>(K) * 32 * sizeof(uint32_t) : 0;
-}
-
-inline int blocks_for(int S) { return (S + kThreads - 1) / kThreads; }
-
 // ---------------------------------------------------------------------------
-// Segmented scans (bitap.cu, fingerprint.cu): each L-byte stream is cut
-// into P segments of Ls = L / P bytes, one thread per (segment, stream).
+// Segments: each L-byte stream is cut into P segments of Ls = L / P bytes,
+// one thread per (segment, stream).
 // ---------------------------------------------------------------------------
 constexpr int kSegThreads = 128;  // threads per block
 
 // The (segment, stream) of this thread. Warps are 32 consecutive streams of
-// one segment, so a warp's load of one word row is one 128-byte
-// transaction; the segments of a stream group sit in neighbouring warps, so
-// segment j's warm-up rows (segment j-1's last rows) are read close in
-// time. `t` indexes the thread's limb scratch on the spill path.
+// one segment, so a warp's load of one stream-major word row is one
+// 128-byte transaction and its stores of per-position outputs
+// ([.., t, .., lane], lane-fastest) coalesce; the segments of a stream
+// group sit in neighbouring warps, so segment j's warm-up words (segment
+// j-1's last words) are read close in time. `t` indexes the thread's limb
+// scratch on the spill path.
 struct Segment {
   int t;   // thread, 0 .. S*P-1
   int s;   // stream
@@ -211,73 +111,17 @@ __device__ __forceinline__ bool segment_of(int S, int P, int Wb,
   return true;
 }
 
-// Row i of a segment's walk, a pointer into `halo` (i < Hw, segment 0) or
-// `body` (everything else). The walk is Hw warm-up rows, then the
-// segment's nw body rows: segment 0 warms up over the halo (the tail of
-// stream s-1), segment j > 0 over the Hw body rows before its own.
-struct SegmentRows {
-  const uint32_t* halo;
-  const uint32_t* body;
-  size_t S;
-  int Hw;
-  int w0;
-  bool first;  // segment 0
-  __device__ __forceinline__ const uint32_t* row(int i, int s) const {
-    if (first && i < Hw) return halo + static_cast<size_t>(i) * S + s;
-    return body + static_cast<size_t>(w0 + i - Hw) * S + s;
-  }
-};
-
-// Words in flight: each thread keeps kRing - 1 rows of its walk in flight
-// ahead of the one it scans, copied by cp.async into its own slots of a
-// ring in shared memory ([kRing][kSegThreads] words, conflict-free).
-constexpr int kRing = 4;
-
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
+inline int seg_blocks_for(int S, int P) {
+  return (S * P + kSegThreads - 1) / kSegThreads;
 }
 
-// Walk rows [0, count) in order, calling on_word(i, word). Each thread
-// reads back only the slots it copied into, so cp.async.wait_group is the
-// only synchronisation needed.
-template <typename F>
-__device__ __forceinline__ void walk_rows(const SegmentRows& r, int s,
-                                          int count, uint32_t* ring,
-                                          F&& on_word) {
-  uint32_t* mine = ring + threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < kRing - 1; ++i) {
-    if (i < count) cp_async4(mine + i * kSegThreads, r.row(i, s));
-    cp_async_commit();
-  }
-  for (int i = 0; i < count; ++i) {
-    // Commit group g carries row g. Slot (i + kRing - 1) % kRing was read
-    // one word ago and used; after this commit, waiting until at most
-    // kRing - 1 groups are pending completes row i.
-    const int ahead = i + kRing - 1;
-    if (ahead < count) {
-      cp_async4(mine + (ahead % kRing) * kSegThreads, r.row(ahead, s));
-    }
-    cp_async_commit();
-    cp_async_wait();
-    on_word(i, mine[(i % kRing) * kSegThreads]);
-  }
-}
-
-// The segmented kernels step all KR register limbs with no per-limb guard:
-// limbs K..KR-1 get zero tables and zero start and end masks, so they stay
-// 0 and report nothing. A guard `k < K` compiles to a branch per limb and
-// byte, and with it a recomputed table address and a register copy of the
-// new state.
+// ---------------------------------------------------------------------------
+// The step: all KR register limbs with no per-limb guard. Limbs K..KR-1
+// get zero tables and zero start and end masks, so they stay 0 and report
+// nothing. A guard `k < K` compiles to a branch per limb and byte, and
+// with it a recomputed table address and a register copy of the new
+// state.
+// ---------------------------------------------------------------------------
 
 // The nybble tables, for KR > 0 copied into the block's shared memory
 // `tab` and padded with zeros to KR limbs: lo at tab, hi at tab + 16 * KR.
@@ -302,59 +146,237 @@ __device__ __forceinline__ void load_tables_padded(const uint32_t* lo,
   }
 }
 
-// `init`, with the state and masks of limbs K..KR-1 zero.
+// Zero state (thread t's column of the scratch `state`, rows of `row`
+// words, for KR == 0); for KR > 0 the start/end masks into registers, those
+// of limbs K..KR-1 zero.
 template <int KR>
 __device__ __forceinline__ void init_padded(Limbs<KR>& st,
                                             const uint32_t* sm,
                                             const uint32_t* em,
                                             uint32_t* state, int t, int row,
                                             int K) {
-  init<KR>(st, sm, em, state, t, row, K);
+  st.g = state + t;
+  st.gsm = sm;
+  st.gem = em;
+  st.S = row;
   if constexpr (KR > 0) {
 #pragma unroll
     for (int k = 0; k < KR; ++k) {
-      if (k >= K) {
-        st.m[k] = 0u;
-        st.sm[k] = 0u;
-        st.em[k] = 0u;
-      }
+      st.m[k] = 0u;
+      st.sm[k] = k < K ? sm[k] : 0u;
+      st.em[k] = k < K ? em[k] : 0u;
     }
+  } else {
+    for (int k = 0; k < K; ++k) st.at(k) = 0u;
   }
 }
 
-// `step` over limbs [0, KR) (the K limbs of the spill path): the funnel
-// shift forms (m << 1) | (the old m of the limb below >> 31) at once.
+template <int KR>
+__device__ __forceinline__ void reset(Limbs<KR>& st, int K) {
+  if constexpr (KR > 0) {
+#pragma unroll
+    for (int k = 0; k < KR; ++k) st.m[k] = 0u;
+  } else {
+    for (int k = 0; k < K; ++k) st.at(k) = 0u;
+  }
+}
+
+// Advance the KR register limbs by one byte, given the rows of the byte's
+// two nybbles in the tables (lo = LO + (b & 15), hi = HI + (b >> 4));
+// on_limb(k, m') sees each new limb word in limb order. The funnel shift
+// forms (m << 1) | (the old m of the limb below >> 31) at once.
+template <int KR, typename F>
+__device__ __forceinline__ void step_rows(Limbs<KR>& st, const uint32_t* lo,
+                                          const uint32_t* hi, F&& on_limb) {
+  static_assert(KR > 0, "register limbs only");
+  uint32_t below = 0u;
+#pragma unroll
+  for (int k = 0; k < KR; ++k) {
+    const uint32_t old = st.m[k];
+    const uint32_t nm = (__funnelshift_l(below, old, 1) | st.sm[k]) &
+                        lo[16 * k] & hi[16 * k];
+    below = old;
+    st.m[k] = nm;
+    on_limb(k, nm);
+  }
+}
+
+// Advance limbs [0, KR) (the K limbs of the spill path) by byte b, as
+// step_rows does.
 template <int KR, typename F>
 __device__ __forceinline__ void step_padded(Limbs<KR>& st, const uint32_t* LO,
                                             const uint32_t* HI, int K,
                                             uint32_t b, F&& on_limb) {
   if constexpr (KR == 0) {
-    step<0>(st, LO, HI, K, b, on_limb);
-  } else {
-    const uint32_t* lo = LO + (b & 15u);
-    const uint32_t* hi = HI + (b >> 4);
     uint32_t below = 0u;
-#pragma unroll
-    for (int k = 0; k < KR; ++k) {
-      const uint32_t old = st.m[k];
-      const uint32_t nm = (__funnelshift_l(below, old, 1) | st.sm[k]) &
-                          lo[16 * k] & hi[16 * k];
+    for (int k = 0; k < K; ++k) {
+      const uint32_t old = st.at(k);
+      const uint32_t nm = (__funnelshift_l(below, old, 1) | st.start(k)) &
+                          __ldg(LO + k * 16 + (b & 15u)) &
+                          __ldg(HI + k * 16 + (b >> 4));
       below = old;
-      st.m[k] = nm;
+      st.at(k) = nm;
       on_limb(k, nm);
     }
+  } else {
+    step_rows<KR>(st, LO + (b & 15u), HI + (b >> 4), on_limb);
   }
 }
 
-// Dynamic shared memory of a segmented block: the padded tables, then the
-// ring.
+// The four bytes of a word, their nybbles split and scaled to byte offsets
+// of table rows once per word (two operations). A byte's row is then one
+// byte permutation away, and when the tables are a static __shared__
+// array the row's offset folds into the shared load's address: two
+// instructions per byte where a shift, a mask and an address computation
+// per nybble cost about seven.
+struct Nybbles {
+  uint32_t lo;  // byte jj: 4 * (b_jj & 15)
+  uint32_t hi;  // byte jj: 4 * (b_jj >> 4)
+  __device__ __forceinline__ explicit Nybbles(uint32_t w)
+      : lo((w << 2) & 0x3C3C3C3Cu), hi((w >> 2) & 0x3C3C3C3Cu) {}
+  __device__ __forceinline__ static const uint32_t* row(const uint32_t* T,
+                                                        uint32_t packed,
+                                                        int jj) {
+    const uint32_t off = __byte_perm(packed, 0u, 0x4440u + jj);  // byte jj
+    return reinterpret_cast<const uint32_t*>(
+        reinterpret_cast<const char*>(T) + off);
+  }
+  __device__ __forceinline__ const uint32_t* lo_row(const uint32_t* LO,
+                                                    int jj) const {
+    return row(LO, lo, jj);
+  }
+  __device__ __forceinline__ const uint32_t* hi_row(const uint32_t* HI,
+                                                    int jj) const {
+    return row(HI, hi, jj);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The cp.async rings: each thread copies the words ahead of the one it
+// scans into its own slots of a ring in shared memory and reads back only
+// those, so cp.async.wait_group is the only synchronisation needed.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint4* dst, const uint4* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stream-major words (bitap.cu, fingerprint.cu). Row i of a segment's
+// walk, a pointer into `halo` (i < Hw, segment 0) or `body` (everything
+// else). The walk is Hw warm-up rows, then the segment's nw body rows:
+// segment 0 warms up over the halo (the tail of stream s-1), segment j > 0
+// over the Hw body rows before its own.
+struct SegmentRows {
+  const uint32_t* halo;
+  const uint32_t* body;
+  size_t S;
+  int Hw;
+  int w0;
+  bool first;  // segment 0
+  __device__ __forceinline__ const uint32_t* row(int i, int s) const {
+    if (first && i < Hw) return halo + static_cast<size_t>(i) * S + s;
+    return body + static_cast<size_t>(w0 + i - Hw) * S + s;
+  }
+};
+
+// Words in flight: kRing - 1 rows ahead of the one scanned, one word per
+// slot ([kRing][kSegThreads] words, conflict-free).
+constexpr int kRing = 4;
+
+// Walk rows [0, count) in order, calling on_word(i, word).
+template <typename F>
+__device__ __forceinline__ void walk_rows(const SegmentRows& r, int s,
+                                          int count, uint32_t* ring,
+                                          F&& on_word) {
+  uint32_t* mine = ring + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kRing - 1; ++i) {
+    if (i < count) cp_async4(mine + i * kSegThreads, r.row(i, s));
+    cp_async_commit();
+  }
+  for (int i = 0; i < count; ++i) {
+    // Commit group g carries row g. Slot (i + kRing - 1) % kRing was read
+    // one word ago and used; after this commit, waiting until at most
+    // kRing - 1 groups are pending completes row i.
+    const int ahead = i + kRing - 1;
+    if (ahead < count) {
+      cp_async4(mine + (ahead % kRing) * kSegThreads, r.row(ahead, s));
+    }
+    cp_async_commit();
+    cp_async_wait<kRing - 1>();
+    on_word(i, mine[(i % kRing) * kSegThreads]);
+  }
+}
+
+// Dynamic shared memory of a stream-major segmented block: the padded
+// tables, then the ring.
 inline size_t seg_shmem_bytes(int KR) {
   return static_cast<size_t>(KR) * 32 * sizeof(uint32_t) +
          static_cast<size_t>(kRing) * kSegThreads * sizeof(uint32_t);
 }
 
-inline int seg_blocks_for(int S, int P) {
-  return (S * P + kSegThreads - 1) / kSegThreads;
+// Row-major words (staged.cu). A ring slot is 8 words, one 32-byte sector
+// of the thread's run, copied by two 16-byte cp.async issued together and
+// read back as two 16-byte quads. The ring is [kRunRing][2][kSegThreads]
+// quads, so both the copies and the reads of a warp touch 32 consecutive
+// quads: no bank conflicts.
+constexpr int kRunSlot = 8;   // words per slot
+constexpr int kRunRing = 3;   // slots per thread: two in flight
+
+// Walk the words [w0, w1) of x in order, w1 a multiple of kRunSlot. The
+// words before the first whole slot (fewer than kRunSlot) are read
+// directly, on_word(w, word); then every slot is scanned as two quads,
+// on_quad(w, v) with w the index of v.x. x must be 16-byte aligned.
+template <typename W, typename Q>
+__device__ __forceinline__ void walk_run(const uint32_t* x, long long w0,
+                                         long long w1, uint4* ring,
+                                         W&& on_word, Q&& on_quad) {
+  const long long a = (w0 + kRunSlot - 1) / kRunSlot * kRunSlot;
+  const int slots = static_cast<int>((w1 - a) / kRunSlot);
+  const uint4* src = reinterpret_cast<const uint4*>(x + a);
+  uint4* mine = ring + threadIdx.x;
+  auto fetch = [&](int i) {
+    uint4* d = mine + (i % kRunRing) * 2 * kSegThreads;
+    cp_async16(d, src + 2 * i);
+    cp_async16(d + kSegThreads, src + 2 * i + 1);
+  };
+#pragma unroll
+  for (int i = 0; i < kRunRing - 1; ++i) {
+    if (i < slots) fetch(i);
+    cp_async_commit();
+  }
+  // The leading words, while the first slots are in flight.
+#pragma unroll 1
+  for (long long w = w0; w < a; ++w) on_word(w, __ldg(x + w));
+  for (int i = 0; i < slots; ++i) {
+    // As in walk_rows: commit group g carries slot g, and slot
+    // (i + kRunRing - 1) % kRunRing was read and used one slot ago.
+    const int ahead = i + kRunRing - 1;
+    if (ahead < slots) fetch(ahead);
+    cp_async_commit();
+    cp_async_wait<kRunRing - 1>();
+    const uint4* d = mine + (i % kRunRing) * 2 * kSegThreads;
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      on_quad(a + static_cast<long long>(i) * kRunSlot + 4 * h,
+              d[h * kSegThreads]);
+    }
+  }
 }
 
 }  // namespace shift_and

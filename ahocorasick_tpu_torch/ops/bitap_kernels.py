@@ -66,31 +66,44 @@ def reset_counts() -> None:
 # ---------------------------------------------------------------------------
 # Argument checks and launch plumbing (shared with the other kernel modules)
 # ---------------------------------------------------------------------------
-def check_scan_args(lo, hi, sm, em, halo, body) -> Tuple[int, int, int, int]:
-    """Validate the inputs of a shift-AND scan; returns (K, Hw, Wb, tiles)."""
-    dev = body.device
-    for name, t in (("lo", lo), ("hi", hi), ("start", sm), ("end", em),
-                    ("halo", halo), ("body", body)):
+def check_tensors(words_name: str, words: torch.Tensor,
+                  **tensors: torch.Tensor) -> None:
+    """Every tensor int32, contiguous and on the device of ``words``, which
+    must be the CPU or a CUDA device."""
+    dev = words.device
+    for name, t in ((words_name, words), *tensors.items()):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, body on {dev}")
+            raise ValueError(f"{name} is on {t.device}, {words_name} on "
+                             f"{dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def check_tables(lo, hi, sm, em) -> int:
+    """Validate the shapes of a scan's tables; returns K."""
     K = lo.shape[0]
     if K < 1 or lo.shape != (K, 16) or hi.shape != (K, 16):
         raise ValueError(f"lo/hi must be [K, 16], got {tuple(lo.shape)}, "
                          f"{tuple(hi.shape)}")
     if sm.shape != (K,) or em.shape != (K,):
         raise ValueError(f"start/end must be [{K}]")
+    return K
+
+
+def check_scan_args(lo, hi, sm, em, halo, body) -> Tuple[int, int, int, int]:
+    """Validate the inputs of a shift-AND scan; returns (K, Hw, Wb, tiles)."""
+    check_tensors("body", body, lo=lo, hi=hi, start=sm, end=em, halo=halo)
+    K = check_tables(lo, hi, sm, em)
     if body.dim() != 3 or body.shape[2] != 128 or body.shape[1] % 8:
         raise ValueError(f"body must be [Wb, tiles*8, 128], got "
                          f"{tuple(body.shape)}")
     if halo.dim() != 3 or halo.shape[1:] != body.shape[1:]:
         raise ValueError(f"halo must be [Hw, {body.shape[1]}, 128], got "
                          f"{tuple(halo.shape)}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
     return K, halo.shape[0], body.shape[0], body.shape[1] // 8
 
 

@@ -2,7 +2,8 @@
 rescan of the flagged streams.
 
 The PyTorch port of the JAX package's ``ops/staged.py``; host logic,
-thresholds and layouts are copied unchanged.
+thresholds, stream layout (``_layout``) and output layouts are copied
+unchanged.
 
 Stage 1 — fingerprint flags (kernel G3, ``staged_kernels.staged_flags``).
 Each pattern contributes its first ``min(4, len)`` bytes as an
@@ -17,12 +18,14 @@ inside the stream's scanned window (H >= max_pattern_len - 1 >= len - f).
 
 Stage 2 — exact rescan of candidates (kernel G4,
 ``staged_kernels.staged_gathered``). The flagged streams are compacted
-(``select_nonzero_words``), their row-major body and halo rows gathered on
-the device (``index_select``) and transposed to the stream-major layout,
-and the full-K masked scan runs over them, each lane carrying its
-original stream id so position masking and counting are unchanged.
-Extraction also writes end words for the candidate streams only and
-decodes them with ``decode_match_words(..., stream_map=cand)``.
+(``select_nonzero_words``) and the full-K masked scan runs over them, each
+lane carrying its original stream id and reading that stream's row of the
+upload itself, so position masking and counting are unchanged. (The JAX
+package gathers the candidate rows into a stream-major copy first; the
+Hopper kernels need no copy: the engine keeps the upload as it lies,
+``rows [ns, Wb]``, and both stages read it.) Extraction also writes end
+words for the candidate streams only and decodes them with
+``decode_match_words(..., stream_map=cand)``.
 
 Candidate overflow (more flagged streams than ``cap``) grows ``cap``;
 past the number of streams the engine returns None and the caller falls
@@ -51,7 +54,7 @@ from .compaction import select_nonzero_words
 # per-stream candidate probability low on sparse inputs.
 STAGED_L = 512
 # Below this haystack size the single-pass engine wins (staging adds a
-# fixed two-kernel + gather overhead).
+# fixed two-kernel + compaction overhead).
 STAGED_MIN = 1 << 22
 FINGERPRINT_BYTES = 4
 
@@ -61,35 +64,17 @@ def _fingerprints(patterns: List[bytes]) -> List[bytes]:
 
 
 class StagedHaystack:
-    """Device-resident staged-engine layout: upload + transpose once,
-    count many times (the production repeated-search path)."""
+    """Device-resident staged-engine haystack: upload once, count many
+    times (the production repeated-search path)."""
 
-    __slots__ = ("n", "L", "Lc", "tiles", "rows", "hrows", "halo_a",
-                 "body")
+    __slots__ = ("n", "L", "Lc", "tiles", "rows")
 
-    def __init__(self, n, L, Lc, tiles, rows, hrows, halo_a, body):
+    def __init__(self, n, L, Lc, tiles, rows):
         self.n = n
         self.L = L
         self.Lc = Lc
         self.tiles = tiles
-        self.rows = rows        # [ns, Wb] int32 row-major (stage-2 gather)
-        self.hrows = hrows      # [ns, Hw] halo rows
-        self.halo_a = halo_a    # stream-major halo (stage-1)
-        self.body = body        # stream-major body (stage-1)
-
-
-def _staged_layouts(x32: torch.Tensor, L: int, tiles: int, H: int):
-    """(rows [ns, Wb], hrows [ns, Hw], halo [Hw, ns/128, 128],
-    body [Wb, ns/128, 128]) of the packed words ``x32``; halo row s holds
-    the H bytes before stream s (stream 0's wrap around the buffer)."""
-    ns = tiles * LANES
-    Wb = L // 4
-    Hw = H // 4
-    rows = x32.reshape(ns, Wb)
-    hrows = torch.roll(x32, Hw).reshape(ns, Wb)[:, :Hw].contiguous()
-    body = rows.T.reshape(Wb, ns // 128, 128).contiguous()
-    halo = hrows.T.reshape(Hw, ns // 128, 128).contiguous()
-    return rows, hrows, halo, body
+        self.rows = rows        # [ns, L/4] int32 words, row s = stream s
 
 
 class StagedEngine:
@@ -139,7 +124,7 @@ class StagedEngine:
         return self._fp_args, self._full_args
 
     def prepare(self, hs: bytes) -> StagedHaystack:
-        """Upload a haystack into the device-resident staged layout."""
+        """Upload a haystack, padded with the pad byte to whole streams."""
         n = len(hs)
         L, Lc, tiles = self._layout(max(n, 1))
         ns = tiles * LANES
@@ -147,9 +132,8 @@ class StagedEngine:
         assert pad is not None
         buf = np.full(ns * L, pad, np.uint8)
         buf[:n] = np.frombuffer(hs, np.uint8)
-        x32 = torch.from_numpy(buf.view(np.int32)).to(self.device)
-        rows, hrows, halo_a, body = _staged_layouts(x32, L, tiles, self.halo)
-        return StagedHaystack(n, L, Lc, tiles, rows, hrows, halo_a, body)
+        rows = torch.from_numpy(buf.view(np.int32)).to(self.device)
+        return StagedHaystack(n, L, Lc, tiles, rows.view(ns, L // 4))
 
     # ------------------------------------------------------------------
     # The two stages
@@ -157,7 +141,7 @@ class StagedEngine:
     def flags(self, ph: StagedHaystack) -> torch.Tensor:
         """Stage 1: per-stream flag words [tiles, 8, 128] (G3)."""
         (lo, hi, sm, em), _ = self._args()
-        return _kernels.staged_flags(lo, hi, sm, em, ph.halo_a, ph.body)
+        return _kernels.staged_flags(lo, hi, sm, em, ph.rows, self.halo)
 
     def candidates(self, ph: StagedHaystack,
                    cap: int) -> Tuple[int, torch.Tensor]:
@@ -167,26 +151,13 @@ class StagedEngine:
         ncand, widx, _, live = select_nonzero_words(fl, cap)
         return ncand, torch.where(live, widx, -1)
 
-    def gather(self, ph: StagedHaystack, cand: torch.Tensor):
-        """(sid [cap/1024, 8, 128] int32, halo [Hw, cap/128, 128],
-        body [Wb, cap/128, 128]): the candidate streams' words in the
-        stream-major layout; pad lanes (-1) read stream 0's rows."""
-        cap = cand.shape[0]
-        safe = cand.clamp(min=0)
-        grows = ph.rows.index_select(0, safe)
-        ghalo = ph.hrows.index_select(0, safe)
-        gbody = grows.T.reshape(-1, cap // 128, 128).contiguous()
-        ghal = ghalo.T.reshape(-1, cap // 128, 128).contiguous()
-        sid = cand.to(torch.int32).reshape(cap // LANES, 8, 128)
-        return sid, ghal, gbody
-
     def rescan(self, ph: StagedHaystack, cand: torch.Tensor, extract: bool):
         """Stage 2 over the candidate streams (G4): (counts, words)."""
         _, (lo, hi, sm, em) = self._args()
-        sid, ghal, gbody = self.gather(ph, cand)
+        sid = cand.to(torch.int32).reshape(-1, 8, 128)
         return _kernels.staged_gathered(
-            lo, hi, sm, em, self.full.end_limbs, sid, ghal, gbody, 0, ph.n,
-            extract,
+            lo, hi, sm, em, self.full.end_limbs, sid, ph.rows, self.halo, 0,
+            ph.n, extract,
         )
 
     # ------------------------------------------------------------------

@@ -5,20 +5,29 @@ their plain PyTorch versions.
 ``ops/staged.py::_make_flags_kernel``): per stream, the OR of the prefix
 chains' end hits over halo and body, on a pad-byte padded haystack.
 ``staged_gathered`` runs kernel G4 (the port of ``_make_gathered_kernel``):
-the exact scan over gathered candidate streams, each lane carrying its
-original stream id (-1 for a pad lane), positions masked to ``[n0, n)``
-in original coordinates.
+the exact scan over candidate streams, each lane carrying its original
+stream id (-1 for a pad lane), positions masked to ``[n0, n)`` in original
+coordinates.
 
-Layouts are the JAX package's (see ``bitap_kernels``): flags and counts
-``[tiles, 8, 128]`` int32, ``sid [tiles_c, 8, 128]`` int32, words
-``[tiles_c, L, Ke, 8, 128]``. On a CPU tensor a wrapper computes its
-kernel's plain version; on a CUDA tensor it launches the kernel or raises.
-Launches are counted in ``flags_launches`` and ``gathered_launches``.
+Both read the haystack words as uploaded: ``rows [ns, Wb]`` int32, row s
+holding the L = 4 * Wb bytes of stream s; the halo of stream s is the last
+``H`` bytes of row s - 1 (stream 0's wrap around the buffer). The JAX
+kernels read a stream-major copy of the rows (and G4 a gathered one of the
+candidates); the plain versions build those copies and run the JAX
+kernels' arithmetic on them. Outputs keep the JAX package's layouts (see
+``bitap_kernels``): flags and counts ``[tiles, 8, 128]`` int32, ``sid
+[tiles_c, 8, 128]`` int32, words ``[tiles_c, L, Ke, 8, 128]``.
+
+On a CPU tensor a wrapper computes its kernel's plain version; on a CUDA
+tensor it launches the kernel or raises. Launches are counted in
+``flags_launches`` and ``gathered_launches``; the ``(threads, P, Ls)`` of
+the last launch is kept in ``flags_plan`` and ``gathered_plan`` (the
+kernels cut each stream into P segments of Ls bytes, ``segment_plan``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -26,22 +35,31 @@ from .. import _build
 from .._build import I, LL, P
 from .bitap_kernels import (
     PlainScan,
-    check_scan_args,
+    check_tables,
+    check_tensors,
     launch,
     or_limbs,
     ptr,
+    resident_threads,
     scan_plain,
-    spill_state,
+    segment_plan,
+    segment_state,
     to_i32,
 )
 
 flags_launches = 0
 gathered_launches = 0
+flags_plan: Optional[Tuple[int, int, int]] = None
+gathered_plan: Optional[Tuple[int, int, int]] = None
+
+# Segments of the staged kernels are whole ring slots: 32 bytes, one
+# sector of a thread's run of row-major words (csrc/shift_and.cuh).
+SEGMENT_ALIGN = 32
 
 LIBRARY = _build.CudaLibrary("staged.cu", {
-    "staged_flags": (P, P, P, P, I, P, I, P, I, I, P, P, P),
-    "staged_gathered": (P, P, P, P, I, I, P, P, I, P, I, I, LL, LL, P, P, P,
-                        P),
+    "staged_flags": (P, P, P, P, I, P, I, I, I, I, P, P, I, P),
+    "staged_gathered": (P, P, P, P, I, I, P, P, I, I, I, I, LL, LL, P, P, P,
+                        I, P),
 })
 
 
@@ -51,32 +69,66 @@ def reset_counts() -> None:
     gathered_launches = 0
 
 
+def _check_rows(lo, hi, sm, em, rows, H: int) -> Tuple[int, int, int, int]:
+    """Validate the inputs of a staged scan; returns (K, Hw, Wb, ns)."""
+    check_tensors("rows", rows, lo=lo, hi=hi, start=sm, end=em)
+    K = check_tables(lo, hi, sm, em)
+    if rows.dim() != 2 or rows.shape[0] % 1024 or rows.shape[1] % 8:
+        raise ValueError(f"rows must be [tiles*1024, Wb] with Wb a multiple "
+                         f"of 8, got {tuple(rows.shape)}")
+    ns, Wb = rows.shape
+    if H % 4 or not 0 <= H <= 4 * Wb:
+        raise ValueError(f"halo {H} must be a multiple of 4 within a row "
+                         f"({4 * Wb} bytes)")
+    return K, H // 4, Wb, ns
+
+
+def stream_major(rows, H: int, streams=None):
+    """(halo [Hw, S/128, 128], body [Wb, S/128, 128]): the JAX package's
+    stream-major layout of the streams ``streams`` (all by default) of the
+    row-major words; halo row s holds the H bytes before stream s."""
+    ns, Wb = rows.shape
+    Hw = H // 4
+    hrows = torch.roll(rows.reshape(-1), Hw).reshape(ns, Wb)[:, :Hw]
+    body = rows
+    if streams is not None:
+        hrows, body = hrows[streams], rows[streams]
+    S = body.shape[0]
+    return (hrows.T.reshape(Hw, S // 128, 128).contiguous(),
+            body.T.reshape(Wb, S // 128, 128).contiguous())
+
+
 # ---------------------------------------------------------------------------
 # G3: stage-1 flags
 # ---------------------------------------------------------------------------
-def staged_flags(lo, hi, sm, em, halo, body) -> torch.Tensor:
-    """Per-stream flag words [tiles, 8, 128] int32."""
-    global flags_launches
-    K, Hw, Wb, tiles = check_scan_args(lo, hi, sm, em, halo, body)
-    dev = body.device
+def staged_flags(lo, hi, sm, em, rows, H: int) -> torch.Tensor:
+    """Per-stream flag words [tiles, 8, 128] int32 of ``rows [ns, Wb]``
+    with an ``H``-byte halo."""
+    global flags_launches, flags_plan
+    K, Hw, Wb, ns = _check_rows(lo, hi, sm, em, rows, H)
+    dev = rows.device
     if dev.type == "cpu":
-        return staged_flags_plain(lo, hi, sm, em, halo, body)
+        return staged_flags_plain(lo, hi, sm, em, rows, H)
     lib = LIBRARY.load()
-    S = tiles * 1024
-    flags = torch.empty((tiles, 8, 128), dtype=torch.int32, device=dev)
+    nseg, Ls = segment_plan(4 * Wb, H, ns, SEGMENT_ALIGN, K,
+                            resident_threads(dev))
+    flags = torch.zeros((ns // 1024, 8, 128), dtype=torch.int32, device=dev)
+    state, row = segment_state(dev, K, ns * nseg)
     launch(dev, lib.staged_flags, "staged_flags",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
-           halo.data_ptr(), Hw, body.data_ptr(), Wb, S, flags.data_ptr(),
-           ptr(spill_state(dev, K, S)))
+           rows.data_ptr(), Hw, Wb, ns, nseg, flags.data_ptr(), ptr(state),
+           row)
     flags_launches += 1
+    flags_plan = (ns * nseg, nseg, Ls)
     return flags
 
 
-def staged_flags_plain(lo, hi, sm, em, halo, body) -> torch.Tensor:
+def staged_flags_plain(lo, hi, sm, em, rows, H: int) -> torch.Tensor:
     """Plain PyTorch version of G3 (same output, any device)."""
-    S = body.shape[1] * 128
+    halo, body = stream_major(rows, H)
+    S = rows.shape[0]
     ps = PlainScan(lo, hi, sm, em, S)
-    fl = torch.zeros(S, dtype=torch.int64, device=body.device)
+    fl = torch.zeros(S, dtype=torch.int64, device=rows.device)
 
     def hit(m):
         nonlocal fl
@@ -91,48 +143,59 @@ def staged_flags_plain(lo, hi, sm, em, halo, body) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# G4: stage-2 exact scan over gathered candidate streams
+# G4: stage-2 exact scan of the candidate streams' rows
 # ---------------------------------------------------------------------------
-def _check_sid(sid, body):
+def _check_sid(sid, rows):
     if sid.dtype != torch.int32 or not sid.is_contiguous():
         raise TypeError("sid must be contiguous int32")
-    if sid.device != body.device:
-        raise ValueError(f"sid is on {sid.device}, body on {body.device}")
-    if sid.numel() != body.shape[1] * 128:
-        raise ValueError(f"sid must hold one id per lane "
-                         f"({body.shape[1] * 128}), got {sid.numel()}")
+    if sid.device != rows.device:
+        raise ValueError(f"sid is on {sid.device}, rows on {rows.device}")
+    if sid.numel() % 1024 or sid.numel() == 0:
+        raise ValueError(f"sid must hold whole tiles of 1024 lanes, got "
+                         f"{sid.numel()}")
 
 
-def staged_gathered(lo, hi, sm, em, end_limbs: Sequence[int], sid, halo,
-                    body, n0: int, n: int, extract: bool):
+def staged_gathered(lo, hi, sm, em, end_limbs: Sequence[int], sid, rows,
+                    H: int, n0: int, n: int, extract: bool):
     """(counts [tiles_c,8,128], words [tiles_c,L,Ke,8,128] or None), with
-    ``Ke = len(end_limbs)``."""
-    global gathered_launches
-    K, Hw, Wb, tiles = check_scan_args(lo, hi, sm, em, halo, body)
-    _check_sid(sid, body)
-    dev = body.device
+    ``Ke = len(end_limbs)``: lane i scans row ``sid[i]`` of ``rows`` (ids
+    below ``rows.shape[0]``, which the kernel does not check, or -1)."""
+    global gathered_launches, gathered_plan
+    K, Hw, Wb, _ = _check_rows(lo, hi, sm, em, rows, H)
+    _check_sid(sid, rows)
+    dev = rows.device
     if dev.type == "cpu":
-        return staged_gathered_plain(lo, hi, sm, em, end_limbs, sid, halo,
-                                     body, n0, n, extract)
+        return staged_gathered_plain(lo, hi, sm, em, end_limbs, sid, rows, H,
+                                     n0, n, extract)
     Ke = len(end_limbs)
     if Ke < 1:
         raise ValueError("a gathered scan needs at least one end-bearing "
                          "limb")
     lib = LIBRARY.load()
-    S = tiles * 1024
-    counts = torch.empty((tiles, 8, 128), dtype=torch.int32, device=dev)
-    words = (torch.empty((tiles, 4 * Wb, Ke, 8, 128), dtype=torch.int32,
+    S = sid.numel()
+    nseg, Ls = segment_plan(4 * Wb, H, S, SEGMENT_ALIGN, K,
+                            resident_threads(dev))
+    # Counts are sums of the segments' atomicAdds; every end word is
+    # written (zeros for pad lanes).
+    counts = torch.zeros((S // 1024, 8, 128), dtype=torch.int32, device=dev)
+    words = (torch.empty((S // 1024, 4 * Wb, Ke, 8, 128), dtype=torch.int32,
                          device=dev) if extract else None)
+    state, row = segment_state(dev, K, S * nseg)
     launch(dev, lib.staged_gathered, "staged_gathered",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K, Ke,
-           sid.data_ptr(), halo.data_ptr(), Hw, body.data_ptr(), Wb, S, n0,
-           n, counts.data_ptr(), ptr(words), ptr(spill_state(dev, K, S)))
+           sid.data_ptr(), rows.data_ptr(), Hw, Wb, S, nseg, n0, n,
+           counts.data_ptr(), ptr(words), ptr(state), row)
     gathered_launches += 1
+    gathered_plan = (S * nseg, nseg, Ls)
     return counts, words
 
 
 def staged_gathered_plain(lo, hi, sm, em, end_limbs: Sequence[int], sid,
-                          halo, body, n0: int, n: int, extract: bool):
-    """Plain PyTorch version of G4 (same outputs, any device)."""
+                          rows, H: int, n0: int, n: int, extract: bool):
+    """Plain PyTorch version of G4 (same outputs, any device): the JAX
+    package's gathered stream-major copy of the candidate rows (pad lanes
+    read stream 0's), scanned by ``scan_plain``."""
+    safe = sid.reshape(-1).to(torch.int64).clamp(min=0)
+    halo, body = stream_major(rows, H, safe)
     return scan_plain(lo, hi, sm, em, halo, body, (n0, n), list(end_limbs),
                       extract, sid=sid)

@@ -16,9 +16,9 @@ Phases, each raising on a mismatch (launch counts are read around each
 facade call; kernel-vs-plain launches are not counted):
   1. environment (card, power limit, torch, CUDA, nvcc);
   2. build (and the ptxas register/spill report);
-  3. staged count, five names, 64 MiB: G3 over 131,072 streams, then G4
-     over the candidates; raw flags and per-lane counts against the plain
-     versions;
+  3. staged count, five names, 64 MiB: G3 over the 131,072 uploaded rows,
+     then G4 over the candidates' rows; raw flags and per-lane counts
+     against the plain versions, both kernels split into P > 1 segments;
   4. G2: a 2 MiB count; the single-pass extraction (engine="bitap") of
      16 MiB in two 8 MiB chunks, raw words against the plain version;
   5. G1: count at 594,915 bytes (and its single-pass find_iter), a 64 MiB
@@ -31,8 +31,10 @@ facade call; kernel-vs-plain launches are not counted):
   8. dict1k: a 1,000-entry case-insensitive name dictionary over 64 MiB of
      prose, count and find_overlapping_iter (G6), and a 512 KiB count (G5);
   9. timing of each kernel at those shapes, with the thread count and the
-     segment plan (P segments of Ls bytes per stream) that the wrappers of
-     G1/G2/G5/G6 record at launch;
+     segment plan (P segments of Ls bytes per stream) that each wrapper
+     records at launch; the device time of the copies that the staged
+     kernels no longer need (the stream-major layout and the candidate
+     gather, as torch operations);
      whole facade calls (host clock, median of 7) with a torch.profiler
      trace of one call each for the device's idle share; the parts of the
      64 MiB staged count;
@@ -460,6 +462,7 @@ def main() -> int:
     report["sass"] = {}
     for name, lib, kernel in (
             ("G6", FK.LIBRARY, "bitmap_kernelILi%dELb0E"),
+            ("G4 count", SK.LIBRARY, "gathered_kernelILi%dELb0E"),
             ("G2 count", TK.LIBRARY, "scan_kernelILi%dELb1ELb0E"),
             ("G1 count", TK.LIBRARY, "scan_kernelILi%dELb0ELb0E")):
         sass = subprocess.run([cuobjdump, "-sass", lib.path],
@@ -523,22 +526,25 @@ def main() -> int:
     st = ac._staged
     sph = st.prepare(hay64)
     (flo, fhi, fsm, fem), (slo, shi, ssm, sem) = st._args()
-    fargs = (flo, fhi, fsm, fem, sph.halo_a, sph.body)
+    fargs = (flo, fhi, fsm, fem, sph.rows, st.halo)
     err("G3", SK.staged_flags(*fargs), SK.staged_flags_plain(*fargs))
     ns = sph.tiles * 1024
     cap64 = max(1024, TB._pow2(ns // 8))
     ncand64, cand64 = st.candidates(sph, cap64)
     assert ncand64 <= cap64, (ncand64, cap64)
-    sid64, ghal64, gbody64 = st.gather(sph, cand64)
+    sid64 = cand64.to(torch.int32).reshape(-1, 8, 128)
     gargs = lambda ex: (slo, shi, ssm, sem, st.full.end_limbs,  # noqa: E731
-                        sid64, ghal64, gbody64, 0, sph.n, ex)
+                        sid64, sph.rows, st.halo, 0, sph.n, ex)
     for ex in (False, True):
         err("G4", SK.staged_gathered(*gargs(ex)),
             SK.staged_gathered_plain(*gargs(ex)))
+    assert SK.flags_plan[1] > 1 and SK.gathered_plan[1] > 1, (
+        SK.flags_plan, SK.gathered_plan)
     log(f"[staged count] 64 MiB: {got} matches = host truth; launches "
         f"G3 {c['G3']} G4 {c['G4']}; Kf={st.fp.k} K={st.full.k}, "
         f"{ns} streams of {sph.L} B, {ncand64} candidates in cap {cap64}; "
-        f"G3 flags and G4 counts/words = plain ({time.time() - t0:.1f} s)")
+        f"G3 flags (P={SK.flags_plan[1]}) and G4 counts/words "
+        f"(P={SK.gathered_plan[1]}) = plain ({time.time() - t0:.1f} s)")
 
     # 4. G2: 2 MiB count, single-pass extraction -------------------------------
     t0 = time.time()
@@ -660,15 +666,17 @@ def main() -> int:
     st7 = ac7._staged
     ph7 = st7.prepare(hay7)
     ncand7, cand7 = st7.candidates(ph7, st7._cap_s)
-    sid7, ghal7, gbody7 = st7.gather(ph7, cand7)
+    sid7 = cand7.to(torch.int32).reshape(-1, 8, 128)
     _, (l7, h7, s7, e7) = st7._args()
-    g7 = (l7, h7, s7, e7, st7.full.end_limbs, sid7, ghal7, gbody7, 0,
+    g7 = (l7, h7, s7, e7, st7.full.end_limbs, sid7, ph7.rows, st7.halo, 0,
           ph7.n, True)
     err("G4", SK.staged_gathered(*g7), SK.staged_gathered_plain(*g7))
+    assert SK.gathered_plan[1] > 1, SK.gathered_plan
     log(f"[staged extract] 16 MiB, 5 names + a {len(LONG)}-byte pattern: "
         f"{len(got)} overlapping = host truth; launches G3 {c['G3']} G4 "
         f"{c['G4']}; {ncand7} candidates in cap {st7._cap_s}; G4 words = "
-        f"plain ({time.time() - t0:.1f} s)")
+        f"plain (P={SK.gathered_plan[1]}, H={st7.halo}) "
+        f"({time.time() - t0:.1f} s)")
 
     # 8. dict1k ----------------------------------------------------------------------
     t0 = time.time()
@@ -712,21 +720,20 @@ def main() -> int:
             raise AssertionError(f"{k} was never launched on a facade path")
 
     # 9. Timing ------------------------------------------------------------------
-    def row(name, K, n, lanes, out_per_byte, kern, plain, popc=True,
-            extra_in=0, seg=None):
-        """One timed kernel; ``seg`` reads the (threads, P, Ls) that a
-        segmented kernel's wrapper recorded at its last launch, None for
-        one thread per lane (G3, G4)."""
+    def row(name, K, n, lanes, out_per_byte, kern, plain, seg, popc=True,
+            extra_in=0):
+        """One timed kernel; ``seg`` reads the (threads, P, Ls) that the
+        kernel's wrapper recorded at its last launch."""
         ms = kernel_ms(kern)
-        threads, P, Ls = seg() if seg else (lanes, 1, None)
+        threads, P, Ls = seg()
         bms, by = bound(K, n, lanes, out_per_byte, sm_hz, popc, extra_in)
         r = dict(name=name, K=K, bytes=n, ms=ms, plain_ms=events_ms(plain),
                  bound_ms=bms, bound_by=by, gbps=n / ms / 1e6,
                  share_of_bound=bms / ms, threads=threads, P=P, Ls=Ls)
         log(f"[time] {name}: {ms:.4f} ms ({r['gbps']:.1f} GB/s), plain "
             f"{r['plain_ms']:.1f} ms, bound {bms:.4f} ms ({by}), "
-            f"{100 * bms / ms:.1f}% of bound; {threads} threads"
-            + (f", P={P} x Ls={Ls} B" if seg else "") + f" | {card}")
+            f"{100 * bms / ms:.1f}% of bound; {threads} threads, P={P} x "
+            f"Ls={Ls} B | {card}")
         return r
 
     K3, Ke = eng.tables.k, len(eng.tables.end_limbs)
@@ -741,75 +748,76 @@ def main() -> int:
     a_k = eng_k._args() + (ph_k.halo_a, ph_k.body, 0, len(hay_k), False)
     g1, g2 = (lambda: TK.generic_plan), (lambda: TK.baked_plan)
     g5, g6 = (lambda: FK.generic_plan), (lambda: FK.baked_plan)
+    g3, g4 = (lambda: SK.flags_plan), (lambda: SK.gathered_plan)
     rows = {
         "G1": row(f"G1 count 594,915 B, K={K3}", K3, HEADLINE_N, ph_h.tiles
                   * 1024, 0, lambda: TK.bitap_scan_generic(*hx(False)),
                   lambda: TK.bitap_scan_generic_plain(*hx(False)),
-                  seg=g1),
+                  g1),
         "G1 extract": row(f"G1 extract 594,915 B (find_iter), K={K3}", K3,
                           HEADLINE_N, ph_h.tiles * 1024, 4 * K3,
                           lambda: TK.bitap_scan_generic(*hx(True)),
                           lambda: TK.bitap_scan_generic_plain(*hx(True)),
-                          seg=g1),
+                          g1),
         "G1 no pad": row(f"G1 count 64 MiB no pad byte, K={eng_np.tables.k}",
                          eng_np.tables.k, len(hay_np), ph_np.tiles * 1024, 0,
                          lambda: TK.bitap_scan_generic(*a_np),
                          lambda: TK.bitap_scan_generic_plain(*a_np),
-                         seg=g1),
+                         g1),
         "G1 K=229": row(f"G1 count 1 MiB, K={Kk} (spill path)", Kk,
                         len(hay_k), ph_k.tiles * 1024, 0,
                         lambda: TK.bitap_scan_generic(*a_k),
                         lambda: TK.bitap_scan_generic_plain(*a_k),
-                        seg=g1),
+                        g1),
         "G2": row(f"G2 count 2 MiB, K={K3}", K3, len(hay2), ph2.tiles * 1024,
                   0, lambda: TK.bitap_scan_baked(*a2(False)),
                   lambda: TK.bitap_scan_baked_plain(*a2(False)),
-                  seg=g2),
+                  g2),
         "G2 64 MiB": row(f"G2 count 64 MiB (PR 1's shape), K={K3}", K3,
                          len(hay64), ph64.tiles * 1024, 0,
                          lambda: TK.bitap_scan_baked(*a64),
                          lambda: TK.bitap_scan_baked_plain(*a64),
-                         seg=g2),
+                         g2),
         "G2 extract": row(f"G2 extract 8 MiB chunk, Ke={Ke}", K3,
                           chunk.n, chunk.tiles * 1024, 4 * Ke,
                           lambda: TK.bitap_scan_baked(*ax(True)),
                           lambda: TK.bitap_scan_baked_plain(*ax(True)),
-                          seg=g2),
+                          g2),
         "G3": row(f"G3 flags 64 MiB, Kf={st.fp.k}, {ns} streams", st.fp.k,
                   sph.n, ns, 0, lambda: SK.staged_flags(*fargs),
-                  lambda: SK.staged_flags_plain(*fargs), popc=False),
+                  lambda: SK.staged_flags_plain(*fargs), g3, popc=False),
         "G4": row(f"G4 count, {ncand64} candidates x {L64} B in {cap64} "
                   f"lanes, K={st.full.k}", st.full.k, ncand64 * L64, cap64,
                   0, lambda: SK.staged_gathered(*gargs(False)),
-                  lambda: SK.staged_gathered_plain(*gargs(False)),
+                  lambda: SK.staged_gathered_plain(*gargs(False)), g4,
                   extra_in=4 * cap64),
         "G4 extract": row(f"G4 extract, {ncand7} candidates x {ph7.L} B in "
                           f"{st7._cap_s} lanes, K={st7.full.k}", st7.full.k,
                           ncand7 * ph7.L, st7._cap_s,
                           4 * len(st7.full.end_limbs),
                           lambda: SK.staged_gathered(*g7),
-                          lambda: SK.staged_gathered_plain(*g7),
+                          lambda: SK.staged_gathered_plain(*g7), g4,
                           extra_in=4 * st7._cap_s),
         "G5": row(f"G5 bitmap 594,915 B, five names, K={fp.tables.k}",
                   fp.tables.k, HEADLINE_N, phh.tiles * 1024, 1 / 8,
                   lambda: FK.fp_bitmap_generic(*fh, 0, HEADLINE_N),
                   lambda: FK.fp_bitmap_plain(*fh, (0, HEADLINE_N)),
-                  popc=False, seg=g5),
+                  g5, popc=False),
         "G5 dict1k": row(f"G5 bitmap 512 KiB dict1k, K={fpd.tables.k}",
                          fpd.tables.k, len(hay_d5), phd5.tiles * 1024, 1 / 8,
                          lambda: FK.fp_bitmap_generic(*fd5, 0, len(hay_d5)),
                          lambda: FK.fp_bitmap_plain(*fd5, (0, len(hay_d5))),
-                         popc=False, seg=g5),
+                         g5, popc=False),
         "G6": row(f"G6 bitmap 64 MiB dict1k, K={fpd.tables.k}",
                   fpd.tables.k, len(hay_d), phd.tiles * 1024, 1 / 8,
                   lambda: FK.fp_bitmap_baked(*fd),
                   lambda: FK.fp_bitmap_plain(*fd, None),
-                  popc=False, seg=g6),
+                  g6, popc=False),
         "G6 names": row(f"G6 bitmap 16 MiB five names, K={fp.tables.k}",
                         fp.tables.k, len(hay16), ph16.tiles * 1024, 1 / 8,
                         lambda: FK.fp_bitmap_baked(*f16),
                         lambda: FK.fp_bitmap_plain(*f16, None),
-                        popc=False, seg=g6),
+                        g6, popc=False),
     }
     report["timings"] = rows
     report["launches"] = launches
@@ -863,14 +871,12 @@ def main() -> int:
     ]
 
     # The 64 MiB staged count's steps, RUNS times, each run beside a whole
-    # count_matches call: the host pack, the pageable upload, the device's
-    # row and stream-major layouts, G3 with the candidate compaction, the
-    # gather with G4 and the sum, each ended by a synchronise and read on
+    # count_matches call: the host pack, the pageable upload (its rows are
+    # what G3 and G4 read), G3 with the candidate compaction, G4 over the
+    # candidates' rows and the sum, each ended by a synchronise and read on
     # the host clock, so the parts add up to their sum.
     parts = {k: [] for k in ("count_matches", "sum_of_parts", "pack",
-                             "upload", "layouts", "flags_and_select",
-                             "gather_rescan_sum")}
-    from ahocorasick_tpu_torch.ops.staged import _staged_layouts
+                             "upload", "flags_and_select", "rescan_sum")}
     for _ in range(RUNS):
         parts["count_matches"].append(host_ms(lambda: ac.count_matches(hay64)))
         t0 = time.perf_counter()
@@ -878,38 +884,61 @@ def main() -> int:
         buf[:len(hay64)] = np.frombuffer(hay64, np.uint8)
         x32 = torch.from_numpy(buf.view(np.int32))
         t1 = time.perf_counter()
-        xd = x32.to(dev)
+        xd = x32.to(dev).view(ns, sph.L // 4)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        rows_, hrows_, halo_, body_ = _staged_layouts(xd, sph.L, sph.tiles,
-                                                      st.halo)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        fl = SK.staged_flags(flo, fhi, fsm, fem, halo_, body_).reshape(-1)
+        fl = SK.staged_flags(flo, fhi, fsm, fem, xd, st.halo).reshape(-1)
         nc, widx, _, live = select_nonzero_words(fl, cap64)
         cand = torch.where(live, widx, -1)
         torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        safe = cand.clamp(min=0)
-        gb = rows_.index_select(0, safe).T.reshape(-1, cap64 // 128, 128)
-        gh = hrows_.index_select(0, safe).T.reshape(-1, cap64 // 128, 128)
+        t3 = time.perf_counter()
         cnt, _ = SK.staged_gathered(
             slo, shi, ssm, sem, st.full.end_limbs,
-            cand.to(torch.int32).reshape(cap64 // 1024, 8, 128),
-            gh.contiguous(), gb.contiguous(), 0, len(hay64), False)
+            cand.to(torch.int32).reshape(-1, 8, 128), xd, st.halo, 0,
+            len(hay64), False)
         assert int(cnt.sum()) == len(truth64)
-        t5 = time.perf_counter()
+        t4 = time.perf_counter()
         for k, a, b in (("pack", t0, t1), ("upload", t1, t2),
-                        ("layouts", t2, t3), ("flags_and_select", t3, t4),
-                        ("gather_rescan_sum", t4, t5),
-                        ("sum_of_parts", t0, t5)):
+                        ("flags_and_select", t2, t3), ("rescan_sum", t3, t4),
+                        ("sum_of_parts", t0, t4)):
             parts[k].append((b - a) * 1e3)
-        del buf, x32, xd, rows_, hrows_, halo_, body_, fl, cand, gb, gh
+        del buf, x32, xd, fl, cand
     med = {k: float(np.median(v)) for k, v in parts.items()}
     log("[e2e parts] staged count_matches 64 MiB, medians of "
         f"{RUNS}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
         + f" | {card}")
     report["staged_count_parts"] = dict(runs_ms=parts, median_ms=med)
+
+    # The copies the staged call made before G3 and G4 read the upload's
+    # rows, which the call no longer makes: the stream-major layout of the
+    # rows (a roll and two transposes, the JAX package's _staged_layouts)
+    # and the gather of the candidates' rows and halo rows into a
+    # stream-major copy (two index_selects and two transposes), the same
+    # torch operations at the same shapes, timed as the kernels are.
+    def old_layout(rows, H):
+        nsr, Wbr = rows.shape
+        hrows = torch.roll(rows.reshape(-1), H // 4).reshape(nsr, Wbr)[
+            :, :H // 4].contiguous()
+        return hrows, (rows.T.reshape(Wbr, nsr // 128, 128).contiguous(),
+                       hrows.T.reshape(H // 4, nsr // 128, 128).contiguous())
+
+    def old_gather(rows, hrows, cand):
+        safe, cap = cand.clamp(min=0), cand.shape[0]
+        return [r.index_select(0, safe).T.reshape(-1, cap // 128, 128)
+                .contiguous() for r in (rows, hrows)]
+    hrows64, hrows7 = old_layout(sph.rows, st.halo)[0], old_layout(
+        ph7.rows, st7.halo)[0]
+    removed = {
+        "layout 64 MiB": kernel_ms(lambda: old_layout(sph.rows, st.halo)),
+        "gather (G4 count)": kernel_ms(
+            lambda: old_gather(sph.rows, hrows64, cand64)),
+        "gather (G4 extract)": kernel_ms(
+            lambda: old_gather(ph7.rows, hrows7, cand7)),
+    }
+    del hrows64, hrows7
+    log("[time] copies no longer made: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in removed.items()) + f" | {card}")
+    report["removed_copies_ms"] = removed
 
     # 10. Result lines ---------------------------------------------------------------
     def entry(k, fn, src, line, r):

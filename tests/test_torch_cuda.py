@@ -126,32 +126,62 @@ def _dictionary(seed, count=600):
 
 STAGED_SETS = {
     "names": NAMES,
+    # K = 5 limbs: the 8-limb register bucket with three inert limbs.
+    "k5": NAMES + [b"Mycroft Holmes", b"Mrs Hudson", b"Mary Morstan",
+                   b"Colonel Moran", b"Baker Street"],
     # K = 107 limbs for the full set, 105 for the prefixes: the spill path.
     "spill": [bytes([65 + i % 26, 97 + i // 26]) + b"abcdefghijklmnop"[:i % 7]
-            + b"xyz" for i in range(130)],
+              + b"xyz" for i in range(130)],
 }
+
+
+def _staged_case(dev, name, n):
+    pats = STAGED_SETS[name]
+    eng = TS.StagedEngine(pats, False, dev)
+    hay = bytearray(_hay(n, 4, pats))
+    hay[:len(pats[0])] = pats[0]
+    return eng, eng.prepare(bytes(hay)), len(hay)
 
 
 @pytest.mark.parametrize("name", list(STAGED_SETS))
 def test_staged_kernels_equal_plain(dev, name):
-    """G3 over the whole layout; G4 over the candidates, with pad lanes
-    (-1) and stream 0 among them, count and extract."""
-    pats = STAGED_SETS[name]
-    eng = TS.StagedEngine(pats, False, dev)
-    hay = bytearray(_hay(3 << 20, 4, pats))
-    hay[:len(pats[0])] = pats[0]
-    ph = eng.prepare(bytes(hay))
+    """G3 over the whole upload; G4 over the candidates' rows, with pad
+    lanes (-1) and stream 0 among them, count and extract, over the whole
+    haystack and over a window whose both ends fall inside segments; both
+    kernels with P > 1 segments per stream."""
+    eng, ph, n = _staged_case(dev, name, 3 << 20)
     (flo, fhi, fsm, fem), (lo, hi, sm, em) = eng._args()
-    flags = SK.staged_flags(flo, fhi, fsm, fem, ph.halo_a, ph.body)
-    _same([flags], [SK.staged_flags_plain(flo, fhi, fsm, fem, ph.halo_a,
-                                          ph.body)])
+    if name == "k5":
+        assert eng.full.k == 5
+    if name == "spill":
+        assert eng.full.k > 64 and eng.fp.k > 64
+    fargs = (flo, fhi, fsm, fem, ph.rows, eng.halo)
+    _same([SK.staged_flags(*fargs)], [SK.staged_flags_plain(*fargs)])
+    assert SK.flags_plan[1] > 1
     ncand, cand = eng.candidates(ph, 4096)
     assert 0 < ncand < 4096 and int(cand[0]) == 0
-    sid, ghal, gbody = eng.gather(ph, cand)
+    sid = cand.to(torch.int32).reshape(-1, 8, 128)
     for extract in (False, True):
-        args = (lo, hi, sm, em, eng.full.end_limbs, sid, ghal, gbody, 0,
-                len(hay), extract)
-        _same(SK.staged_gathered(*args), SK.staged_gathered_plain(*args))
+        for n0, n1 in ((0, n), (37, n - 45)):
+            args = (lo, hi, sm, em, eng.full.end_limbs, sid, ph.rows,
+                    eng.halo, n0, n1, extract)
+            _same(SK.staged_gathered(*args), SK.staged_gathered_plain(*args))
+            _, P, Ls = SK.gathered_plan
+            assert P > 1
+            if n0:
+                assert n0 % Ls and (n1 % ph.L) % Ls
+
+
+@pytest.mark.parametrize("n", [300_000, 4 << 20], ids=["one_tile", "4MiB"])
+def test_staged_flags_shapes(dev, n):
+    """G3 over one tile of streams (the plan's finest split) and over the
+    4 MiB of the smallest staged count."""
+    eng, ph, _ = _staged_case(dev, "names", n)
+    assert (ph.tiles == 1) == (n < 1 << 20)
+    fargs = eng._args()[0] + (ph.rows, eng.halo)
+    _same([SK.staged_flags(*fargs)], [SK.staged_flags_plain(*fargs)])
+    threads, P, Ls = SK.flags_plan
+    assert P > 1 and threads == ph.tiles * 1024 * P and Ls >= eng.halo
 
 
 @pytest.mark.parametrize("baked", [False, True], ids=["G5", "G6"])

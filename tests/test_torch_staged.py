@@ -4,9 +4,13 @@ Same inputs, made from seeds with numpy, go through the JAX package's
 Pallas kernels G3 (`_make_flags_kernel`) and G4 (`_make_gathered_kernel`),
 run in interpret mode on the CPU as its own tests run them, and through
 the plain PyTorch versions of the port's Hopper kernels; then through both
-packages' staged pipelines and engines. Every output is an integer: the
-tolerance is exact equality of tables, layouts, raw flags, candidate ids,
-per-lane counts, raw end words, totals and (pid, end) pairs.
+packages' staged pipelines and engines. The Pallas kernels get the JAX
+package's own inputs (its stream-major layouts from `prepare`, its gather
+of the candidate rows by `jnp.take`); the port's kernels read the upload's
+row-major words and the candidates' stream ids. Every output is an
+integer: the tolerance is exact equality of tables, layouts, raw flags,
+candidate ids, per-lane counts, raw end words, totals and (pid, end)
+pairs.
 """
 
 import jax
@@ -96,9 +100,17 @@ def test_tables_and_layouts_equal(name):
     jph, tph = jeng.prepare(hay), teng.prepare(hay)
     assert (tph.n, tph.L, tph.Lc, tph.tiles) == (jph.n, jph.L, jph.Lc,
                                                  jph.tiles)
-    for field in ("rows", "hrows", "halo_a", "body"):
-        np.testing.assert_array_equal(getattr(tph, field).numpy(),
-                                      _np(getattr(jph, field)), field)
+    rows = tph.rows.numpy()
+    np.testing.assert_array_equal(rows, _np(jph.rows))
+    # The halo of stream s is the tail of row s - 1 (stream 0's that of the
+    # last row): the JAX package's halo rows, read in place.
+    Hw = teng.halo // 4
+    np.testing.assert_array_equal(np.roll(rows, 1, axis=0)[:, -Hw:],
+                                  _np(jph.hrows))
+    # The plain versions' stream-major copies are the JAX package's.
+    halo, body = SK.stream_major(tph.rows, teng.halo)
+    np.testing.assert_array_equal(halo.numpy(), _np(jph.halo_a))
+    np.testing.assert_array_equal(body.numpy(), _np(jph.body))
 
 
 def test_eligibility_equals_jax():
@@ -143,7 +155,7 @@ def test_flags_plain_equals_pallas(name):
     jph, tph = jeng.prepare(hay), teng.prepare(hay)
     want = _jax_flags(jeng, jph)
     lo, hi, sm, em = teng.fp.device_tensors("cpu")
-    got = SK.staged_flags_plain(lo, hi, sm, em, tph.halo_a, tph.body)
+    got = SK.staged_flags_plain(lo, hi, sm, em, tph.rows, teng.halo)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want != 0).sum() > 5
     # The port's engine-level flags (the wrapper on a CPU tensor).
@@ -194,13 +206,18 @@ def test_gathered_plain_equals_pallas(name, extract):
     jph, tph = jeng.prepare(hay), teng.prepare(hay)
     ncand, cand = teng.candidates(tph, 1024)
     assert 5 < ncand < 1024 and int(cand[0]) == 0 and int(cand[-1]) == -1
-    sid, ghal, gbody = teng.gather(tph, cand)
+    sid = cand.to(torch.int32).reshape(1, 8, 128)
+    # The JAX package's stage-2 input (staged.py:284-288): the candidate
+    # rows and halo rows, pad lanes reading stream 0's, stream-major.
+    safe = jnp.maximum(jnp.asarray(cand.numpy()), 0)
+    Hw, Wb = jeng.halo // 4, jph.L // 4
+    ghal = jnp.take(jph.hrows, safe, axis=0).T.reshape(Hw, 8, 128)
+    gbody = jnp.take(jph.rows, safe, axis=0).T.reshape(Wb, 8, 128)
     nn = (3, len(hay) - 2)
-    want = _jax_gathered(jeng, jph, sid.numpy(), ghal.numpy(),
-                         gbody.numpy(), nn, extract)
+    want = _jax_gathered(jeng, jph, sid.numpy(), ghal, gbody, nn, extract)
     _, (lo, hi, sm, em) = teng._args()
     got = SK.staged_gathered_plain(lo, hi, sm, em, teng.full.end_limbs, sid,
-                                   ghal, gbody, *nn, extract)
+                                   tph.rows, teng.halo, *nn, extract)
     np.testing.assert_array_equal(got[0].numpy(), want[0])
     if extract:
         np.testing.assert_array_equal(got[1].numpy(), want[1])
@@ -314,14 +331,15 @@ def test_wrappers_on_cpu_use_plain_and_count_nothing():
     ph = teng.prepare(hay)
     SK.reset_counts()
     (flo, fhi, fsm, fem), (lo, hi, sm, em) = teng._args()
-    flags = SK.staged_flags(flo, fhi, fsm, fem, ph.halo_a, ph.body)
+    flags = SK.staged_flags(flo, fhi, fsm, fem, ph.rows, teng.halo)
     np.testing.assert_array_equal(
         flags.numpy(),
-        SK.staged_flags_plain(flo, fhi, fsm, fem, ph.halo_a, ph.body).numpy())
+        SK.staged_flags_plain(flo, fhi, fsm, fem, ph.rows,
+                              teng.halo).numpy())
     _, cand = teng.candidates(ph, 1024)
-    sid, ghal, gbody = teng.gather(ph, cand)
-    SK.staged_gathered(lo, hi, sm, em, teng.full.end_limbs, sid, ghal, gbody,
-                       0, ph.n, False)
+    sid = cand.to(torch.int32).reshape(1, 8, 128)
+    SK.staged_gathered(lo, hi, sm, em, teng.full.end_limbs, sid, ph.rows,
+                       teng.halo, 0, ph.n, False)
     assert SK.flags_launches == 0 and SK.gathered_launches == 0
 
 
@@ -330,11 +348,38 @@ def test_wrapper_rejects_bad_sid():
     ph = teng.prepare(hay)
     _, (lo, hi, sm, em) = teng._args()
     _, cand = teng.candidates(ph, 1024)
-    sid, ghal, gbody = teng.gather(ph, cand)
+    sid = cand.to(torch.int32).reshape(1, 8, 128)
     with pytest.raises(TypeError):
         SK.staged_gathered(lo, hi, sm, em, teng.full.end_limbs, sid.long(),
-                           ghal, gbody, 0, ph.n, False)
+                           ph.rows, teng.halo, 0, ph.n, False)
     with pytest.raises(ValueError):
         SK.staged_gathered(lo, hi, sm, em, teng.full.end_limbs,
-                           sid.reshape(-1)[:512].contiguous(), ghal, gbody,
-                           0, ph.n, False)
+                           sid.reshape(-1)[:512].contiguous(), ph.rows,
+                           teng.halo, 0, ph.n, False)
+
+
+@pytest.mark.parametrize("bad", ["int64", "strided", "not_whole_tiles",
+                                 "ragged_slot", "halo_over_row",
+                                 "halo_unaligned"])
+def test_wrappers_reject_bad_rows(bad):
+    """The kernels read whole 32-byte slots of rows [tiles*1024, Wb] and a
+    halo of whole words within one row; anything else raises before a
+    launch."""
+    _, teng, hay = _engines("names")
+    ph = teng.prepare(hay)
+    flo, fhi, fsm, fem = teng._args()[0]
+    rows, H = ph.rows, teng.halo
+    if bad == "int64":
+        rows = rows.long()
+    elif bad == "strided":
+        rows = rows[:, ::2]
+    elif bad == "not_whole_tiles":
+        rows = rows[:1000].contiguous()
+    elif bad == "ragged_slot":
+        rows = rows[:, :124].contiguous()
+    elif bad == "halo_over_row":
+        H = 4 * rows.shape[1] + 4
+    else:
+        H = 30
+    with pytest.raises(TypeError if bad == "int64" else ValueError):
+        SK.staged_flags(flo, fhi, fsm, fem, rows, H)
