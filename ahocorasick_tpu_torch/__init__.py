@@ -12,8 +12,12 @@ crate (BurntSushi/aho-corasick v1.1.3), on an NVIDIA GPU:
     counts and extractions (ops/staged.py, G3/G4 in csrc/staged.cu) and
     the bucketed fingerprint filter with on-device verification for large
     pattern sets and fused extraction (ops/fingerprint.py, G5/G6 in
-    csrc/fingerprint.cu); one haystack stream per CUDA thread, all on the
-    shared shift-AND core (csrc/shift_and.cuh).
+    csrc/fingerprint.cu), and the cascade engine for dictionaries of
+    10k-100k+ patterns (ops/cascade.py: a G5/G6 pass over deduped prefixes,
+    then exact-key probes and verification in torch); the kernels cut each
+    haystack stream into segments, one CUDA thread each, on the shared
+    shift-AND core (csrc/shift_and.cuh). The blocked device DFA walk
+    (ops/block_scan.py) backs the forced `dfa-scan` / `device-only` modes.
   - Standard / leftmost-first / leftmost-longest semantics, overlapping
     search, anchored search, ASCII case folding, replacement and stream
     search/replace all reproduce the reference's (pattern, start, end)

@@ -21,22 +21,23 @@ Architecture of the PyTorch port:
     fused extract (ops/fingerprint.py, when it verifies on the device),
     then the staged extract (ops/staged.py, n >= STAGED_MIN), then the
     single-pass bit-parallel extract (ops/bitap.py); counts try the staged
-    count, then the bit-parallel count. Larger sets go to the fingerprint
-    engine, and the native C++ walk (automata/native.py) serves what it
-    declines; short haystacks take the host scalar walk
-    (ops/block_scan.py). All match semantics are O(#matches) post-filters
-    (semantics.py).
+    count, then the bit-parallel count. Larger sets go to the filter
+    engines: the fingerprint engine (ops/fingerprint.py), and above
+    CASCADE_MIN_PATTERNS patterns (or when the fingerprint planner
+    declines the set) the cascade engine (ops/cascade.py) first. The
+    native C++ walk (automata/native.py) serves what they decline; short
+    haystacks take the host scalar walk, and the blocked device DFA walk
+    (ops/block_scan.py) is the last resort and the forced `dfa-scan` /
+    `device-only` backend. All match semantics are O(#matches)
+    post-filters (semantics.py).
   - Anchored searches and the leftmost+empty-pattern corner run the host
     oracle (oracle.py) — anchored walks are bounded by max_pattern_len
     transitions, so this is O(max_pattern_len) per search, not O(n).
 
 The searcher runs on ``device`` (a builder knob, default ``"cuda"``): the
 default raises when no CUDA device is present, and ``device="cpu"`` runs
-the kernels' plain PyTorch versions. The JAX package's cascade engine
-and its device DFA scan are not ported yet; forcing one of them raises
-NotImplementedError. Every engine is exact, so the traffic the JAX facade
-sends to the cascade engine (sets above CASCADE_MIN_PATTERNS) goes to the
-fingerprint engine or the native walk here, with identical results.
+the kernels' plain PyTorch versions. Every `engine=` mode of the JAX
+facade runs here, routed as there.
 
 Backend `kind` selection mirrors ahocorasick.rs:2213-2261; the kind
 controls which automaton backs the *host* walk paths: CONTIGUOUS_NFA
@@ -57,6 +58,8 @@ from .utils import log
 from .automata.dfa import build_dfa
 from .automata.noncontiguous import compile_nfa, patterns_to_bytes
 from .ops.bitap import BitapEngine
+from .ops.block_scan import DeviceAutomaton
+from .ops.cascade import CascadeEngine
 from .ops.fingerprint import FingerprintEngine
 from .ops.staged import StagedEngine
 from .utils.errors import MatchError
@@ -83,23 +86,15 @@ class AhoCorasickKind(enum.Enum):
 ENGINE_MODES = ("auto", "oracle", "device-only", "bitap", "fingerprint",
                 "cascade", "dfa-scan")
 
-# Engine modes of the JAX package whose engines this package has not
-# ported yet, with the ROADMAP.md item that ports each.
-UNPORTED_ENGINES = {
-    "dfa-scan": "queue 1 item 9 (ops/block_scan.py DeviceAutomaton)",
-    "device-only": "queue 1 item 9 (ops/block_scan.py DeviceAutomaton)",
-    "cascade": "queue 1 item 8 (ops/cascade.py)",
-}
+# Above this pattern count the cascade engine (ops/cascade.py) is offered
+# before the fingerprint engine in auto mode: bucket selectivity degrades
+# with set size while the cascade's exact-membership probes do not.
+CASCADE_MIN_PATTERNS = 4096
 
 
 def _check_engine(mode: str) -> None:
     if mode not in ENGINE_MODES:
         raise ValueError(f"unknown engine mode {mode!r}")
-    if mode in UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine={mode!r} is not ported to PyTorch yet: ROADMAP.md "
-            f"{UNPORTED_ENGINES[mode]}"
-        )
 
 
 def _resolve_device(device) -> torch.device:
@@ -112,14 +107,6 @@ def _resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def _unported_device_scan() -> NotImplementedError:
-    return NotImplementedError(
-        "this search needs the device DFA scan, which is not ported to "
-        "PyTorch yet (ROADMAP.md " + UNPORTED_ENGINES["dfa-scan"] + "); "
-        "the native walk (automata/native.py) was unavailable"
-    )
 
 
 class AhoCorasick:
@@ -178,11 +165,14 @@ class AhoCorasick:
                 nfa.alphabet_len = 256
 
         self._dfa = build_dfa(self._match_nfa)
+        self._dev_automaton: Optional[DeviceAutomaton] = None
         self._bitap: Optional[BitapEngine] = None
         self._bitap_checked = False
         self._staged: Optional[StagedEngine] = None
         self._fp: Optional[FingerprintEngine] = None
         self._fp_checked = False
+        self._cascade: Optional[CascadeEngine] = None
+        self._cascade_checked = False
         self._pre = None
         self._pre_checked = False
         self._dense_depth = builder._dense_depth
@@ -277,12 +267,19 @@ class AhoCorasick:
     # ------------------------------------------------------------------
     # Internals
     # ------------------------------------------------------------------
+    def _device_automaton(self) -> DeviceAutomaton:
+        """The blocked device DFA walk (ops/block_scan.py)."""
+        if self._dev_automaton is None:
+            self._dev_automaton = DeviceAutomaton(self._dfa,
+                                                  self._torch_device)
+        return self._dev_automaton
+
     def _bitap_engine(self) -> Optional[BitapEngine]:
         """The bit-parallel device engine (ops/bitap.py), or None when the
         pattern set is out of its bounds (empty patterns, > 2048 total
         pattern bytes, a pattern longer than 2048 bytes) or the mode
-        forces another engine."""
-        if self._engine_mode == "fingerprint":
+        forces the DFA walk or a filter engine."""
+        if self._engine_mode in ("dfa-scan", "fingerprint", "cascade"):
             return None
         if not self._bitap_checked:
             self._bitap_checked = True
@@ -324,11 +321,9 @@ class AhoCorasick:
         (ops/fingerprint.py). None when ineligible, below the device
         threshold, or previously found filter-hostile (candidate-dense
         input; the native walk is then faster). Its calls return None on
-        filter-hostile input. The JAX facade offers its cascade engine
-        first above CASCADE_MIN_PATTERNS patterns; that engine is not
-        ported yet, so this one serves every size here."""
+        filter-hostile input."""
         forced = self._engine_mode == "fingerprint"
-        if self._engine_mode not in ("auto", "fingerprint"):
+        if self._engine_mode not in ("auto", "device-only", "fingerprint"):
             return None
         if not forced and n < self._device_threshold:
             return None
@@ -349,6 +344,51 @@ class AhoCorasick:
         if self._fp is not None and self._fp.hostile and not forced:
             return None
         return self._fp
+
+    def _cascade_engine(self, n: int) -> Optional[CascadeEngine]:
+        """Cascade engine (ops/cascade.py): the device path for pattern
+        sets beyond the fingerprint planner's bucket budget (10k-100k+
+        patterns). None when ineligible, below the device threshold, or
+        previously found hostile."""
+        forced = self._engine_mode == "cascade"
+        if self._engine_mode not in ("auto", "device-only", "cascade"):
+            return None
+        if not forced and n < self._device_threshold:
+            return None
+        if not self._cascade_checked:
+            self._cascade_checked = True
+            if CascadeEngine.eligible(
+                self._patterns, self._case_insensitive
+            ):
+                self._cascade = CascadeEngine(
+                    self._patterns, self._case_insensitive,
+                    self._torch_device,
+                )
+        if (self._cascade is not None and self._cascade.hostile
+                and not forced):
+            return None
+        return self._cascade
+
+    def _filter_engines(self, n: int) -> list:
+        """Filter engines (fingerprint / cascade) in preference order.
+
+        Both share the match_pairs/count_matches -> Optional protocol
+        (None = hostile input, try the next engine / native walk). Past
+        CASCADE_MIN_PATTERNS the cascade's deduped-prefix coarse filter
+        plus exact-membership probes scales better than per-bucket
+        fingerprint chains, so it leads; below, the fingerprint engine
+        serves and the cascade is built only when the fingerprint engine
+        is unavailable."""
+        fp = self._fingerprint_engine(n)
+        prefer_cascade = (
+            len(self._patterns) > CASCADE_MIN_PATTERNS
+            or self._engine_mode == "cascade"
+        )
+        if fp is not None and not prefer_cascade:
+            return [fp]
+        cas = self._cascade_engine(n)
+        pair = (cas, fp) if prefer_cascade else (fp, cas)
+        return [e for e in pair if e is not None]
 
     def _oracle_automaton(self):
         """The automaton backing host walk paths, per the reported kind:
@@ -447,29 +487,49 @@ class AhoCorasick:
                     if got is not None:
                         return match_set(*got)
             return match_set(*bitap.match_pairs(hs))
-        fp = self._fingerprint_engine(len(hs))
-        if fp is not None:
-            got = fp.match_pairs(hs)
+        for eng in self._filter_engines(len(hs)):
+            got = eng.match_pairs(hs)
             if got is not None:  # None: filter-hostile input, fall back
                 return match_set(*got)
-        # Pattern set beyond the device engines' bounds, a filter-hostile
-        # input or a short haystack: the native sequential DFA walk.
-        from .automata import native as _native
+        if self._engine_mode not in ("dfa-scan", "device-only"):
+            # Pattern set beyond the device engines' bounds, a
+            # filter-hostile input or a short haystack: the native
+            # sequential DFA walk.
+            from .automata import native as _native
 
-        got = _native.dfa_positions(self._dfa, hs)
-        if got is not None:
-            ends, sids = got
-            return semantics.extract_match_set_from_positions(
-                self._dfa, ends, sids, input.start
-            )
-        if len(hs) < self._device_threshold:
+            got = _native.dfa_positions(self._dfa, hs)
+            if got is not None:
+                ends, sids = got
+                return semantics.extract_match_set_from_positions(
+                    self._dfa, ends, sids, input.start
+                )
+        if (
+            len(hs) < self._device_threshold
+            and self._engine_mode != "device-only"
+        ):
             from .ops.block_scan import scan_states_host
 
             states = scan_states_host(self._dfa, hs)
             return semantics.extract_match_set(
                 self._dfa, states, input.start
             )
-        raise _unported_device_scan()
+        # The blocked device DFA walk: only compacted (end, state) pairs
+        # come back from the device.
+        if len(hs) >= (1 << 16) and not getattr(self, "_scan_warned", False):
+            # A correctness backend, one device operation per byte step of
+            # a block; reaching it on a large haystack means a forced
+            # engine knob (or a missing native library) routed production
+            # traffic here. Warn once per searcher.
+            self._scan_warned = True
+            log.logger.warning(
+                "blocked device DFA walk engaged for a %d-byte haystack; "
+                "this is a correctness backend — prefer engine='auto' "
+                "(bitap/fingerprint/cascade/native selection)", len(hs),
+            )
+        ends, sids = self._device_automaton().match_positions(hs)
+        return semantics.extract_match_set_from_positions(
+            self._dfa, ends, sids, input.start
+        )
 
     def _match_set_oracle(self, input: Input) -> semantics.MatchSet:
         """Oracle-computed match set (tests / debugging)."""
@@ -629,21 +689,21 @@ class AhoCorasick:
                 if got is not None:  # None: candidate overflow, rescan
                     return got
             return bitap.count_matches(hs)
-        fp = self._fingerprint_engine(len(hs))
-        if fp is not None:
-            got = fp.count_matches(hs)
+        for eng in self._filter_engines(len(hs)):
+            got = eng.count_matches(hs)
             if got is not None:  # None: filter-hostile input, fall back
                 return got
-        from .automata import native as _native
+        if self._engine_mode not in ("dfa-scan", "device-only"):
+            from .automata import native as _native
 
-        got = _native.dfa_count(self._dfa, hs)
-        if got is not None:
-            extra = 0
-            start_id = self._dfa.special.start_unanchored_id
-            if 2 <= start_id <= self._dfa.special.max_match_id:
-                extra = int(self._dfa.match_count[start_id])
-            return got + extra
-        raise _unported_device_scan()
+            got = _native.dfa_count(self._dfa, hs)
+            if got is not None:
+                extra = 0
+                start_id = self._dfa.special.start_unanchored_id
+                if 2 <= start_id <= self._dfa.special.max_match_id:
+                    extra = int(self._dfa.match_count[start_id])
+                return got + extra
+        return self._device_automaton().count_matches(hs)
 
     # ------------------------------------------------------------------
     # Replacing (ahocorasick.rs:651-906)
@@ -839,12 +899,15 @@ class AhoCorasickBuilder:
 
         'auto' (the device engines in the JAX facade's order, else the
         native walk; host walk for tiny haystacks), 'bitap' (force the
-        bit-parallel kernels even for tiny haystacks), 'fingerprint'
-        (force the fingerprint engine), 'oracle' (host reference walk) —
-        the analog of the reference's test-only backend forcing knobs
-        (packed/api.rs:137-188). The JAX package's 'device-only',
-        'cascade' and 'dfa-scan' modes are not ported yet and raise
-        NotImplementedError."""
+        bit-parallel kernels even for tiny haystacks), 'fingerprint' /
+        'cascade' (force that filter engine), 'device-only' (device
+        engines only: no native walk, and the blocked device DFA walk
+        where the others decline, even for tiny haystacks), 'dfa-scan'
+        (the blocked device DFA walk; extractions shorter than
+        `device_threshold` take the host walk), 'oracle' (host reference
+        walk) — the
+        analog of the reference's test-only backend forcing knobs
+        (packed/api.rs:137-188)."""
         _check_engine(mode)
         self._engine = mode
         return self

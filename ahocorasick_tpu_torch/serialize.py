@@ -175,11 +175,14 @@ def from_arrays(z: dict, device="cuda"):
         max_pattern_len=int(sc[3]),
         match_kind=_KINDS[int(sc[4])],
     )
+    ac._dev_automaton = None
     ac._bitap = None
     ac._bitap_checked = False
     ac._staged = None
     ac._fp = None
     ac._fp_checked = False
+    ac._cascade = None
+    ac._cascade_checked = False
     ac._pre = None
     ac._pre_checked = False
     ac._dense_depth = int(cfg[7])

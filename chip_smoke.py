@@ -6,8 +6,9 @@ Runs `ahocorasick_tpu_torch` (never JAX, never the JAX package) on the
 card: builds the Hopper kernels from csrc/bitap.cu (G1, G2), csrc/staged.cu
 (G3, G4) and csrc/fingerprint.cu (G5, G6) with nvcc, one compiler per
 source, all started together; drives the facade at full size on each route
-the JAX facade takes; holds every result against host truth (`bytes.find`,
-or the port's native C++ walk for the 1,000-entry dictionary); holds each
+the JAX facade takes, every engine mode included; holds every result
+against host truth (`bytes.find`, or the port's native C++ walk for the
+name dictionaries); holds each
 kernel bit for bit against its plain PyTorch version at the shapes the
 facade gave it; and times each kernel (CUDA events around a CUDA graph of
 launches) beside its bound.
@@ -30,15 +31,29 @@ facade call; kernel-vs-plain launches are not counted):
      device verify, so the staged route; G3 and G4 in extract mode);
   8. dict1k: a 1,000-entry case-insensitive name dictionary over 64 MiB of
      prose, count and find_overlapping_iter (G6), and a 512 KiB count (G5);
-  9. timing of each kernel at those shapes, with the thread count and the
+  9. cascade, dict100k: 100,000 case-insensitive names (the reference's
+     signature build shape) over 64 MiB of prose through the `auto` facade,
+     which takes the cascade engine: count and find_overlapping_iter (G6
+     over the deduped prefixes, then the torch probe, expansion and verify
+     stages), the coarse bitmap against the plain version;
+ 10. the same dictionary plus a 70-byte pattern (the cascade's side
+     bit-parallel engine: G6 and G2 in one count; the extraction's side
+     chunks add G1), and a forced engine="cascade" set with no pad byte
+     over 4 MiB (G5 over the window (0, n));
+ 11. the blocked device DFA walk (engine="dfa-scan", no kernel: torch
+     gathers) over the 64 MiB dict1k text and, with a halo longer than a
+     block, over a 128 KiB haystack that fills its bucket; and
+     engine="device-only" over the dict1k text, which takes the
+     fingerprint engine (G6);
+ 12. timing of each kernel at those shapes, with the thread count and the
      segment plan (P segments of Ls bytes per stream) that each wrapper
      records at launch; the device time of the copies that the staged
      kernels no longer need (the stream-major layout and the candidate
      gather, as torch operations);
      whole facade calls (host clock, median of 7) with a torch.profiler
      trace of one call each for the device's idle share; the parts of the
-     64 MiB staged count;
- 10. a `kernels` JSON line (launches from the facade calls, errors, times,
+     64 MiB staged count and of the dict100k cascade count and extraction;
+ 13. a `kernels` JSON line (launches from the facade calls, errors, times,
      bounds), then the card's name and power limit, then the final
      `{"ok": true, ...}` line.
 
@@ -86,6 +101,8 @@ ALU_PER_CLK = 64
 POPC_PER_CLK = 16
 LDS_PER_CLK = 32
 ISSUE_PER_CLK = 128
+CASCADE_PATTERNS = 100_000  # dict100k (the JAX package's bench.py:271-327)
+CASCADE_N = 64 * MIB       # its haystack
 REPS = 20                  # kernel launches per timed CUDA graph
 RUNS = 7                   # facade calls per end-to-end median
 KERNELS = ("G1", "G2", "G3", "G4", "G5", "G6")
@@ -397,6 +414,8 @@ def main() -> int:
         from ahocorasick_tpu_torch import AhoCorasick, _build
         from ahocorasick_tpu_torch.ops import bitap as TB
         from ahocorasick_tpu_torch.ops import bitap_kernels as TK
+        from ahocorasick_tpu_torch.ops import cascade as TC
+        from ahocorasick_tpu_torch.ops import fingerprint as TF
         from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
         from ahocorasick_tpu_torch.ops import staged_kernels as SK
         from ahocorasick_tpu_torch.ops.compaction import select_nonzero_words
@@ -713,13 +732,150 @@ def main() -> int:
         f"{len(truth_d)} matches (native walk {native_s:.1f} s) = count = "
         f"find_overlapping_iter, G6 {cd['G6']} launch per call; 512 KiB = "
         f"native; bitmaps = plain ({time.time() - t0:.1f} s)")
+    # 9. Cascade: 100,000 names through the auto facade ------------------------
+    t0 = time.time()
+    dict100k = build_words(CASCADE_PATTERNS, 99, NAME_SYLLABLES,
+                           capitalize=0.3)
+    hay_c = build_dict_text(CASCADE_N, dict100k)
+    t1 = time.time()
+    ac_c = AhoCorasick(dict100k, ascii_case_insensitive=True, device=dev)
+    native_c = AhoCorasick(dict100k, ascii_case_insensitive=True,
+                           device="cpu", device_threshold=1 << 62)
+    build_s = time.time() - t1
+    t1 = time.time()
+    truth_c = triples(native_c.find_overlapping_iter(hay_c))
+    native_c_s = time.time() - t1
+    assert native_c.count_matches(hay_c) == len(truth_c)
+    assert ac_c._bitap_engine() is None
+    t1 = time.time()
+    got, cc = drive(lambda: ac_c.count_matches(hay_c), ["G6"])
+    first_s = time.time() - t1
+    check("dict100k count", got, len(truth_c))
+    cas = ac_c._cascade
+    # The facade took the cascade (it leads above CASCADE_MIN_PATTERNS):
+    # the engine ran a pass and was not found hostile, and the
+    # fingerprint engine it also built never verified a candidate.
+    if (cas is None or cas.hostile or cas.last_caps is None
+            or getattr(ac_c._fp, "last_caps", None) is not None):
+        raise AssertionError("dict100k did not take the cascade engine")
+    got_c, cx = drive(lambda: triples(ac_c.find_overlapping_iter(hay_c)),
+                      ["G6"])
+    check("dict100k find_overlapping_iter", got_c, truth_c)
+    tc = cas.tables
+    ph_c = cas.prepare(hay_c)
+    assert ph_c.baked
+    fc = tc.device_tensors(dev)["coarse"] + (ph_c.halo_a, ph_c.body)
+    err("G6", FK.fp_bitmap_baked(*fc), FK.fp_bitmap_plain(*fc, None))
+    log(f"[cascade] dict100k: {len(dict100k)} case-insensitive names, "
+        f"{len(hay_c)} B: {len(truth_c)} matches (native walk "
+        f"{native_c_s:.1f} s) = count = find_overlapping_iter; K="
+        f"{tc.coarse.k} (level {cas.level}), {tc.num_prefixes} deduped "
+        f"q={tc.q} prefixes, classes {sorted(tc.classes)}, W={tc.W}, caps "
+        f"(c, e, m) {cas.last_caps}; G6 launches {cc['G6']} (count) "
+        f"{cx['G6']} (extract); bitmap = plain; searchers built in "
+        f"{build_s:.1f} s, first call {first_s:.1f} s (filter engines "
+        f"built) ({time.time() - t0:.1f} s)")
+
+    # 10. The cascade's side engine, and a set with no pad byte ---------------
+    t0 = time.time()
+    pats_s = dict100k + [LONG]
+    buf = bytearray(hay_c)
+    for at in rng.choice(len(buf) - 200, 500, replace=False):
+        buf[at:at + len(LONG)] = LONG
+    hay_s = bytes(buf)
+    del buf
+    ac_s = AhoCorasick(pats_s, ascii_case_insensitive=True, device=dev)
+    native_s = AhoCorasick(pats_s, ascii_case_insensitive=True,
+                           device="cpu", device_threshold=1 << 62)
+    truth_s = triples(native_s.find_overlapping_iter(hay_s))
+    got, cs1 = drive(lambda: ac_s.count_matches(hay_s), ["G6", "G2"])
+    check("dict100k + LONG count", got, len(truth_s))
+    # The side engine's extraction runs in 8 MiB chunks (G2) whose
+    # overlapped re-splits leave short tails (G1), as in the JAX package.
+    got_s, cs2 = drive(lambda: triples(ac_s.find_overlapping_iter(hay_s)),
+                       ["G6", "G2", "G1"])
+    check("dict100k + LONG find_overlapping_iter", got_s, truth_s)
+    cas_s = ac_s._cascade
+    assert cas_s is not None and cas_s.side is not None
+    assert cas_s.long_pids.tolist() == [len(dict100k)]
+    n_long = sum(1 for t in got_s if t[0] == len(dict100k))
+    assert n_long > 400, n_long
+
+    names_n = build_words(200, 5, NAME_SYLLABLES)
+    pats_n = nopad + names_n
+    hay_n = random_with(pats_n, 4 * MIB, 20_000, rng)
+    truth_n = host_pairs(pats_n, hay_n)
+    ac_n = AhoCorasick(pats_n, engine="cascade", device=dev)
+    got, cn = drive(lambda: ac_n.count_matches(hay_n), ["G5"])
+    check("no-pad cascade count 4 MiB", got, len(truth_n))
+    got_n, _ = drive(lambda: triples(ac_n.find_overlapping_iter(hay_n)),
+                     ["G5"])
+    check("no-pad cascade find_overlapping_iter 4 MiB", got_n,
+          overlapping_order(pats_n, truth_n))
+    cas_n = ac_n._cascade
+    assert cas_n is not None and cas_n.pad_byte is None
+    ph_n = cas_n.prepare(hay_n)
+    assert not ph_n.baked
+    fn = cas_n.tables.device_tensors(dev)["coarse"] + (ph_n.halo_a,
+                                                        ph_n.body)
+    err("G5", FK.fp_bitmap_generic(*fn, 0, len(hay_n)),
+        FK.fp_bitmap_plain(*fn, (0, len(hay_n))))
+    log(f"[cascade side] dict100k + a {len(LONG)}-byte pattern: {len(got_s)} "
+        f"matches ({n_long} of it) = native; launches count G6 {cs1['G6']} "
+        f"G2 {cs1['G2']}, extraction G6 {cs2['G6']} G2 {cs2['G2']} G1 "
+        f"{cs2['G1']}; no pad byte, engine='cascade', {len(pats_n)} "
+        f"patterns, 4 MiB: {len(got_n)} matches = host truth, K="
+        f"{cas_n.tables.coarse.k}, G5 {cn['G5']} launch, bitmap = plain "
+        f"({time.time() - t0:.1f} s)")
+
+    # 11. The blocked device DFA walk, and device-only ------------------------
+    t0 = time.time()
+    ac_w = AhoCorasick(dict1k, ascii_case_insensitive=True, device=dev,
+                       engine="dfa-scan")
+    got, _ = drive(lambda: ac_w.count_matches(hay_d), [])
+    check("dfa-scan count 64 MiB", got, len(truth_d))
+    got_w, _ = drive(lambda: triples(ac_w.find_overlapping_iter(hay_d)), [])
+    check("dfa-scan find_overlapping_iter 64 MiB", got_w, truth_d)
+    walk = ac_w._dev_automaton
+    assert walk is not None
+    _, _, walk_L, walk_H = walk._prepare(b"x" * len(hay_d))
+    # A halo longer than a block (a 200-byte pattern, 128-byte blocks) on
+    # a haystack that fills its bucket: the first blocks' halo steps
+    # before the buffer's start are skipped, not wrapped onto its tail.
+    long_h, hay_h = [b"a" * 200, b"ab"], b"a" * (128 << 10)
+    ac_h = AhoCorasick(long_h, device=dev, engine="dfa-scan")
+    truth_h = triples(AhoCorasick(long_h, device="cpu",
+                                  device_threshold=1 << 62)
+                      .find_overlapping_iter(hay_h))
+    got, _ = drive(lambda: ac_h.count_matches(hay_h), [])
+    check("dfa-scan count, halo > block", got, len(truth_h))
+    got, _ = drive(lambda: triples(ac_h.find_overlapping_iter(hay_h)), [])
+    check("dfa-scan find_overlapping_iter, halo > block", got, truth_h)
+    _, _, hl, hh = ac_h._dev_automaton._prepare(hay_h)
+    assert hh > hl and len(truth_h) == len(hay_h) - 199
+    ac_o = AhoCorasick(dict1k, ascii_case_insensitive=True, device=dev,
+                       engine="device-only")
+    got, _ = drive(lambda: ac_o.count_matches(hay_d), ["G6"])
+    check("device-only count 64 MiB", got, len(truth_d))
+    got_o, _ = drive(lambda: triples(ac_o.find_overlapping_iter(hay_d)),
+                     ["G6"])
+    check("device-only find_overlapping_iter 64 MiB", got_o, truth_d)
+    assert ac_o._fp is not None and ac_o._dev_automaton is None
+    log(f"[device walk] dict1k engine='dfa-scan', {len(hay_d)} B: count and "
+        f"find_overlapping_iter = native ({walk.num_states} states x "
+        f"{walk.alphabet_len} classes, blocks of {walk_L} B + a {walk_H}-B "
+        f"halo, no kernel); {len(hay_h)} B of b'a' against a 200-byte "
+        f"pattern (blocks of {hl} B + a {hh}-B halo): {len(truth_h)} matches "
+        f"= native; engine='device-only': the fingerprint engine "
+        f"(G6) = native ({time.time() - t0:.1f} s)")
+
     log(f"[launches] facade calls: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()))
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} was never launched on a facade path")
 
-    # 9. Timing ------------------------------------------------------------------
+    # 12. Timing ------------------------------------------------------------------
     def row(name, K, n, lanes, out_per_byte, kern, plain, seg, popc=True,
             extra_in=0):
         """One timed kernel; ``seg`` reads the (threads, P, Ls) that the
@@ -818,6 +974,19 @@ def main() -> int:
                         lambda: FK.fp_bitmap_baked(*f16),
                         lambda: FK.fp_bitmap_plain(*f16, None),
                         g6, popc=False),
+        "G6 dict100k": row(f"G6 bitmap 64 MiB dict100k cascade coarse, "
+                           f"K={tc.coarse.k}", tc.coarse.k, len(hay_c),
+                           ph_c.tiles * 1024, 1 / 8,
+                           lambda: FK.fp_bitmap_baked(*fc),
+                           lambda: FK.fp_bitmap_plain(*fc, None),
+                           g6, popc=False),
+        "G5 cascade": row(f"G5 bitmap 4 MiB no-pad cascade coarse, "
+                          f"K={cas_n.tables.coarse.k}",
+                          cas_n.tables.coarse.k, len(hay_n),
+                          ph_n.tiles * 1024, 1 / 8,
+                          lambda: FK.fp_bitmap_generic(*fn, 0, len(hay_n)),
+                          lambda: FK.fp_bitmap_plain(*fn, (0, len(hay_n))),
+                          g5, popc=False),
     }
     report["timings"] = rows
     report["launches"] = launches
@@ -868,6 +1037,16 @@ def main() -> int:
             len(hay_d), lambda: list(ac_d.find_overlapping_iter(hay_d))),
         e2e("dict1k count_matches 512 KiB (fingerprint: G5)", len(hay_d5),
             lambda: ac_d.count_matches(hay_d5)),
+        e2e("dict100k count_matches 64 MiB (cascade: G6)", len(hay_c),
+            lambda: ac_c.count_matches(hay_c)),
+        e2e("dict100k find_overlapping_iter 64 MiB (cascade: G6)",
+            len(hay_c), lambda: list(ac_c.find_overlapping_iter(hay_c))),
+        e2e("dict100k + 70-byte pattern count_matches 64 MiB (cascade: G6, "
+            "side G2)", len(hay_s), lambda: ac_s.count_matches(hay_s)),
+        e2e("no-pad set count_matches 4 MiB, engine='cascade' (G5)",
+            len(hay_n), lambda: ac_n.count_matches(hay_n)),
+        e2e("dict1k count_matches 64 MiB, engine='dfa-scan' (device walk)",
+            len(hay_d), lambda: ac_w.count_matches(hay_d)),
     ]
 
     # The 64 MiB staged count's steps, RUNS times, each run beside a whole
@@ -940,7 +1119,77 @@ def main() -> int:
         f"{k} {v:.4f} ms" for k, v in removed.items()) + f" | {card}")
     report["removed_copies_ms"] = removed
 
-    # 10. Result lines ---------------------------------------------------------------
+    # The dict100k cascade count's steps, RUNS times, each run beside a
+    # whole count_matches call, at the caps the facade settled: host pack,
+    # pageable upload, the stream-major layout and the verify buffer, G6,
+    # rank-select, window gather, the exact-class probes, the LONG probe
+    # with its expansion and tail verify (and the one read of the totals),
+    # each ended by a synchronise; and for the extraction, its device
+    # selection and the host's transfer, duplicate expansion and
+    # report-order lexsort.
+    n_c = len(hay_c)
+    cap_c, cap_e, cap_m = cas.last_caps
+    dvc = tc.device_tensors(dev)
+    steps = ("pack", "upload", "layout_and_verify_buffer", "G6",
+             "rank_select", "windows", "class_probes",
+             "long_expand_verify", "select_matches", "host_pairs",
+             "lexsort")
+    cparts = {k: [] for k in ("count_matches", "sum_of_count_parts")
+              + steps}
+    for _ in range(RUNS):
+        cparts["count_matches"].append(
+            host_ms(lambda: ac_c.count_matches(hay_c)))
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        L_c, tiles_c = cas._layout(n_c)
+        buf = np.full(tiles_c * TB.LANES * L_c, cas.pad_byte, np.uint8)
+        buf[:n_c] = np.frombuffer(hay_c, np.uint8)
+        x32 = torch.from_numpy(buf.view(np.int32))
+        mark()
+        x32 = x32.to(dev)
+        mark()
+        halo_c, body_c = TB._to_stream_major(x32, L_c, tiles_c, cas.halo)
+        u8f = TF._verify_buffer(x32, tc.W, cas.ci)
+        mark()
+        _, bmp = FK.fp_bitmap_baked(*dvc["coarse"], halo_c, body_c)
+        mark()
+        ncand, e_pos, live = TF._rank_select(bmp, L_c, cap_c)
+        mark()
+        wnd = TF._gather_windows(u8f, e_pos, tc.W)
+        mark()
+        total, parts = TC._probe_exact(e_pos, live, wnd, n_c, dvc, tc.q)
+        mark()
+        total_e, (ok, pid, end) = TC._expand_long(e_pos, live, wnd, n_c, dvc,
+                                                  cap_e, tc.q, tc.tail_w0)
+        ne, cnt = torch.stack([total_e, total + ok.sum()]).tolist()
+        mark()
+        assert ncand <= cap_c and ne <= cap_e and cnt == len(truth_c)
+        parts.append((ok, pid, end))
+        out_pid, out_end = TC._select_matches(parts, cap_m)
+        mark()
+        hp, he = cas._host_pairs(out_pid, out_end)
+        mark()
+        order = np.lexsort((cas.pid_rank[hp], he))
+        mark()
+        assert len(order) == len(truth_c)
+        for k, a, b in zip(steps, marks, marks[1:]):
+            cparts[k].append((b - a) * 1e3)
+        cparts["sum_of_count_parts"].append((marks[8] - marks[0]) * 1e3)
+        del buf, x32, halo_c, body_c, u8f, bmp, wnd
+    cmed = {k: float(np.median(v)) for k, v in cparts.items()}
+    log("[e2e parts] cascade dict100k 64 MiB, medians of "
+        f"{RUNS} (count: pack .. long_expand_verify; extraction adds "
+        "select_matches .. lexsort): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in cmed.items()) + f" | {card}")
+    report["cascade_parts"] = dict(runs_ms=cparts, median_ms=cmed,
+                                   ncand=ncand, expanded=ne, caps=[
+                                       cap_c, cap_e, cap_m])
+
+    # 13. Result lines ---------------------------------------------------------------
     def entry(k, fn, src, line, r):
         return dict(name=f"{k} {fn}", route="cuda",
                     source=f"ahocorasick_tpu_torch/csrc/{src}",

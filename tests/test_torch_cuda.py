@@ -334,3 +334,64 @@ def test_padded_limbs(dev, extract):
     fargs = fp._args() + (fph.halo_a, fph.body)
     _same(FK.fp_bitmap_baked(*fargs), FK.fp_bitmap_plain(*fargs, None))
 
+
+
+# ---------------------------------------------------------------------------
+# The cascade engine's coarse pass (G5/G6) and the engine on the card
+# ---------------------------------------------------------------------------
+CASCADE_SETS = {
+    # 5,000 names: a strong pad byte, so G6 at any size.
+    "names5k": ("G6", lambda: _cascade_names(5000)),
+    # Every nybble pair in use: no pad byte, G5 over the window (0, n).
+    "no_pad": ("G5", lambda: [bytes(range(8 * i, 8 * i + 8))
+                              for i in range(32)] + _cascade_names(300)),
+}
+
+
+def _cascade_names(count):
+    """``count`` distinct names of 2-4 syllables."""
+    syl = ("bar bel bor dan dar del dor fan far gar gor hal han har kar kel "
+           "kor lan lor mar mor nal nar nor pal par ral ran rok sar").split()
+    rng = np.random.default_rng(count)
+    pats = set()
+    while len(pats) < count:
+        pats.add("".join(syl[int(i)] for i in rng.integers(
+            0, len(syl), int(rng.integers(2, 5)))).encode())
+    return sorted(pats)
+
+
+@pytest.mark.parametrize("name", list(CASCADE_SETS))
+def test_cascade_coarse_bitmap_equals_plain(dev, name):
+    from ahocorasick_tpu_torch.ops import cascade as TC
+
+    kernel, make = CASCADE_SETS[name]
+    pats = make()
+    eng = TC.CascadeEngine(pats, True, dev)
+    ph = eng.prepare(_hay(1 << 20, 14, pats))
+    assert ph.baked == (kernel == "G6")
+    coarse = eng.tables.device_tensors(dev)["coarse"]
+    FK.reset_counts()
+    got = eng._bitmap(ph, coarse)
+    assert (FK.baked_launches, FK.generic_launches) == (
+        (1, 0) if kernel == "G6" else (0, 1))
+    _same(got, FK.fp_bitmap_plain(*coarse, ph.halo_a, ph.body,
+                                  None if kernel == "G6" else (0, ph.n)))
+
+
+@pytest.mark.parametrize("name", list(CASCADE_SETS))
+def test_cascade_engine_equals_its_cpu_run(dev, name):
+    """The engine on the card (kernels, torch stages on CUDA tensors)
+    against the same engine on the CPU (plain versions), counts, pairs
+    and caps."""
+    from ahocorasick_tpu_torch.ops import cascade as TC
+
+    _, make = CASCADE_SETS[name]
+    pats = make() + [b"x" * 70 + b"yz"]  # and the side engine
+    hay = _hay(1 << 20, 15, pats)
+    card, cpu = (TC.CascadeEngine(pats, False, d) for d in (dev, "cpu"))
+    assert card.count_matches(hay) == cpu.count_matches(hay)
+    got, want = card.match_pairs(hay), cpu.match_pairs(hay)
+    assert len(want[0]) > 30
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert card.last_caps == cpu.last_caps and card.level == cpu.level

@@ -1,13 +1,13 @@
 """The port's facade (`ahocorasick_tpu_torch.AhoCorasick`) on the CPU.
 
 - The conformance corpus (tests/corpus.py) against its expected triples,
-  for the configurations this package ports: bitap, auto, oracle and the
-  contiguous host walks.
+  in the configurations of the JAX package's corpus runner plus a forced
+  cascade one, which the JAX runner lacks.
 - A seeded subset held against the JAX facade (Pallas interpret mode).
 - The error-contract, stream and fuzz cases of the JAX package's own
   tests, ported.
-- A forced fingerprint engine held against the JAX facade's; forced
-  engines that are not ported yet raise NotImplementedError.
+- The forced fingerprint, cascade, dfa-scan and device-only engines held
+  against the JAX facade's.
 
 Every searcher is built with ``device="cpu"``, so the kernels' plain
 PyTorch versions run. All outputs are integer triples or bytes: the
@@ -46,8 +46,17 @@ CONFIGS = [
     # Every haystack through the bit-parallel kernels' plain versions;
     # ineligible sets (empty patterns) take the native walk.
     ("bitap", dict(engine="bitap", device_threshold=0)),
+    # The blocked device DFA walk, every haystack.
+    ("dfa_scan", dict(engine="dfa-scan", device_threshold=0)),
+    # Same dense-table semantics through the host scalar walk, with byte
+    # classes disabled (identity alphabet).
+    ("device_nobc", dict(engine="dfa-scan", byte_classes=False)),
     ("oracle", dict(engine="oracle")),
     ("auto", dict()),
+    # The filter engines, forced even for sets the exact engine takes;
+    # sets they decline (empty patterns) take the native walk.
+    ("fingerprint", dict(engine="fingerprint", device_threshold=0)),
+    ("cascade", dict(engine="cascade", device_threshold=0)),
     ("contig_sparse", dict(engine="oracle", dense_depth=0,
                            kind=AhoCorasickKind.CONTIGUOUS_NFA)),
     ("contig_dense", dict(engine="oracle", dense_depth=1 << 20,
@@ -198,12 +207,36 @@ def test_ineligible_set_against_jax_facade():
 # ---------------------------------------------------------------------------
 # Routing and device
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("mode", ["dfa-scan", "device-only", "cascade"])
-def test_unported_engines_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        AhoCorasick(["abc"], engine=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        AhoCorasickBuilder(device="cpu").engine(mode)
+@pytest.mark.parametrize("mode,kind", [
+    ("cascade", MatchKind.STANDARD),
+    ("cascade", MatchKind.LEFTMOST_LONGEST),
+    ("dfa-scan", MatchKind.STANDARD),
+    ("dfa-scan", MatchKind.LEFTMOST_FIRST),
+    ("device-only", MatchKind.STANDARD),
+])
+def test_forced_engines_equal_jax_facade(mode, kind):
+    """Each engine mode the port once lacked runs through both facades
+    (the JAX one with interpret-mode Pallas) with the same triples; the
+    builder setter accepts it too."""
+    rng = np.random.default_rng(29)
+    pats = sorted({bytes(rng.choice(list(b"abcdefgh"),
+                                    int(rng.integers(3, 9))).astype(np.uint8))
+                   for _ in range(40)})
+    hay = bytes(rng.choice(list(b"abcdefghij "), 3000).astype(np.uint8))
+    kw = dict(engine=mode, device_threshold=0)
+    jac = J.AhoCorasick(pats, match_kind=J.MatchKind(kind.value), **kw)
+    tac = AhoCorasick(pats, match_kind=kind, **kw)
+    want = triples(jac.find_iter(J.Input(hay)))
+    assert triples(tac.find_iter(Input(hay))) == want and len(want) > 20
+    if kind.is_standard():
+        assert triples(tac.find_overlapping_iter(Input(hay))) == triples(
+            jac.find_overlapping_iter(J.Input(hay)))
+        assert tac.count_matches(Input(hay)) == jac.count_matches(
+            J.Input(hay))
+    served = {"cascade": tac._cascade, "dfa-scan": tac._dev_automaton,
+              "device-only": tac._fp if tac._bitap is None else tac._bitap}
+    assert served[mode] is not None
+    assert AhoCorasickBuilder(device="cpu").engine(mode)._engine == mode
 
 
 @pytest.mark.parametrize("kind", KINDS)

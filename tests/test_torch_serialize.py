@@ -85,12 +85,21 @@ def test_roundtrip_overlapping_and_stream(tmp_path):
         triples(jac.stream_find_iter(io.BytesIO(h.encode())))
 
 
-def test_load_of_unported_engine_raises(tmp_path):
-    jac = J.AhoCorasick(["abc"], engine="dfa-scan")
+def test_dfa_scan_searcher_roundtrip(tmp_path):
+    """A JAX-saved engine="dfa-scan" searcher loads in the port with its
+    engine mode and searches the same, through the device walk."""
+    jac = J.AhoCorasick(["abc", "bcd", "cab"], engine="dfa-scan",
+                        device_threshold=0)
     p = str(tmp_path / "dfa.npz")
     jac.save(p)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.AhoCorasick.load(p, device="cpu")
+    tac = T.AhoCorasick.load(p, device="cpu")
+    assert tac._engine_mode == "dfa-scan"
+    hay = "abcdcabcab xbcd " * 30
+    assert triples(tac.find_overlapping_iter(T.Input(hay))) == triples(
+        jac.find_overlapping_iter(J.Input(hay)))
+    assert tac.count_matches(T.Input(hay)) == jac.count_matches(
+        J.Input(hay))
+    assert tac._dev_automaton is not None
 
 
 def test_fingerprint_searcher_roundtrip(tmp_path):
