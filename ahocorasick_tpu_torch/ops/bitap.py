@@ -215,13 +215,24 @@ class BitapTables:
             if not (lo[:, b & 15] & hi[:, b >> 4]).any():
                 self.pad_byte = b
                 break
+        self._on_device = {}
 
     def device_tensors(self, device: torch.device):
-        """(lo, hi, start, end) as int32 tensors on ``device``."""
-        return tuple(
+        """(lo, hi, start, end) as int32 tensors on ``device``, cached per
+        device."""
+        return tables_on(self._on_device, device,
+                         (self.lo, self.hi, self.start, self.end))
+
+
+def tables_on(cache: dict, device, arrays) -> tuple:
+    """``arrays`` as tensors on ``device``, kept in ``cache`` per device
+    (a mesh's shards each read their own device's copy)."""
+    device = torch.device(device)
+    if device not in cache:
+        cache[device] = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (self.lo, self.hi, self.start, self.end)
-        )
+            for a in arrays)
+    return cache[device]
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +283,6 @@ class BitapEngine:
                  device="cuda"):
         self.tables = BitapTables(patterns, case_insensitive)
         self.device = torch.device(device)
-        self._dev_args = None
         # Halo: enough history for the longest chain (suffix property
         # needs max_pattern_len - 1 bytes), word-aligned.
         h = max(self.tables.max_pattern_len - 1, 1)
@@ -314,9 +324,7 @@ class BitapEngine:
         return n >= BAKED_MIN and self.tables.pad_byte is not None
 
     def _args(self):
-        if self._dev_args is None:
-            self._dev_args = self.tables.device_tensors(self.device)
-        return self._dev_args
+        return self.tables.device_tensors(self.device)
 
     # ------------------------------------------------------------------
     def prepare(self, hs: bytes,

@@ -288,7 +288,7 @@ class CascadeTables:
             np.ascontiguousarray(pmask).view("<i4"),
             plens.astype(np.int32)[:, None],
         ], axis=1)
-        self._dev = None
+        self._on_device = {}
 
     def memory_usage(self) -> int:
         total = self.pv.nbytes + self.pidarr.nbytes
@@ -316,10 +316,11 @@ class CascadeTables:
         logT, records [T, 4] int64 holding the int32 records' bits read as
         unsigned, so keys compare as values in [0, 2^32)); ``pidarr`` int64;
         ``pv`` [P, 2*Ww+1] int32."""
-        if self._dev is None or self._dev[0] != device:
+        device = torch.device(device)
+        if device not in self._on_device:
             def put(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            self._dev = (device, {
+            self._on_device[device] = {
                 "coarse": self.coarse.device_tensors(device),
                 "classes": {
                     c: (tuple(int(m) for m in t.mults), t.logT,
@@ -328,8 +329,8 @@ class CascadeTables:
                 },
                 "pidarr": put(self.pidarr.astype(np.int64)),
                 "pv": put(self.pv),
-            })
-        return self._dev[1]
+            }
+        return self._on_device[device]
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,7 @@ from .bitap import (
     _pow2,
     _to_stream_major,
     pack_chains,
+    tables_on,
 )
 from .compaction import select_nonzero_words, select_set_bits
 
@@ -156,6 +157,7 @@ class FingerprintTables:
             if not (lo[:, b & 15] & hi[:, b >> 4]).any():
                 self.pad_byte = b
                 break
+        self._on_device = {}
 
     def baked_key(self):
         return (
@@ -166,11 +168,10 @@ class FingerprintTables:
         )
 
     def device_tensors(self, device: torch.device):
-        """(lo, hi, start, end) as int32 tensors on ``device``."""
-        return tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (self.lo, self.hi, self.start, self.end)
-        )
+        """(lo, hi, start, end) as int32 tensors on ``device``, cached per
+        device."""
+        return tables_on(self._on_device, device,
+                         (self.lo, self.hi, self.start, self.end))
 
 
 # Selectivity model for bucket planning: the probability that a text
@@ -782,7 +783,6 @@ class FingerprintEngine:
                 self.dv = DeviceVerify(patterns, case_insensitive)
             except ValueError:
                 self.dv = None  # oversized groups / no hash: host verify
-        self._dev_args = None
         # Chains are at most FP_LEN bytes at every level.
         self.halo = max(_pow2(FP_LEN - 1), 4)
         self.max_pattern_len = int(self.verif.plens.max())
@@ -806,7 +806,6 @@ class FingerprintEngine:
             if t is not None and t.k > self.tables.k:
                 self.level = nxt
                 self.tables = t
-                self._dev_args = None
                 return True
         return False
 
@@ -838,9 +837,7 @@ class FingerprintEngine:
         return buf.view(np.int32)
 
     def _args(self):
-        if self._dev_args is None:
-            self._dev_args = self.tables.device_tensors(self.device)
-        return self._dev_args
+        return self.tables.device_tensors(self.device)
 
     # ------------------------------------------------------------------
     def prepare(self, hs: bytes) -> FpHaystack:

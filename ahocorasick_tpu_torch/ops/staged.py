@@ -93,8 +93,6 @@ class StagedEngine:
         # repeated searches take the first cap that fits.
         self._cap_s = 0
         self._cap_w = 0
-        self._fp_args = None
-        self._full_args = None
 
     @classmethod
     def eligible(cls, patterns: List[bytes], n: int,
@@ -118,10 +116,8 @@ class StagedEngine:
         return L, Lc, tiles
 
     def _args(self):
-        if self._fp_args is None:
-            self._fp_args = self.fp.device_tensors(self.device)
-            self._full_args = self.full.device_tensors(self.device)
-        return self._fp_args, self._full_args
+        return (self.fp.device_tensors(self.device),
+                self.full.device_tensors(self.device))
 
     def prepare(self, hs: bytes) -> StagedHaystack:
         """Upload a haystack, padded with the pad byte to whole streams."""

@@ -6,7 +6,8 @@ Runs `ahocorasick_tpu_torch` (never JAX, never the JAX package) on the
 card: builds the Hopper kernels from csrc/bitap.cu (G1, G2), csrc/staged.cu
 (G3, G4) and csrc/fingerprint.cu (G5, G6) with nvcc, one compiler per
 source, all started together; drives the facade at full size on each route
-the JAX facade takes, every engine mode included; holds every result
+the JAX facade takes, every engine mode included, and the packed searcher,
+the debug CLI and sharded search over a mesh; holds every result
 against host truth (`bytes.find`, or the port's native C++ walk for the
 name dictionaries); holds each
 kernel bit for bit against its plain PyTorch version at the shapes the
@@ -45,7 +46,26 @@ facade call; kernel-vs-plain launches are not counted):
      block, over a 128 KiB haystack that fills its bucket; and
      engine="device-only" over the dict1k text, which takes the
      fingerprint engine (G6);
- 12. timing of each kernel at those shapes, with the thread count and the
+ 12. the packed searcher (`ahocorasick_tpu_torch.packed`) on the card:
+     `Searcher.new` of the five names over 16 MiB (G2 chunks and a G1
+     tail), a 128-name set of over 2,048 pattern bytes over 16 MiB of
+     prose (the fingerprint engine, G6), and `only_teddy` (its
+     fingerprint in torch on the card, host verify), each equal to the
+     leftmost-first facade and the host truth; each kernel of these
+     calls held bit for bit against its plain version on the inputs of
+     its second and last launch (the wrappers' arguments recorded);
+ 13. the debug CLI (`python3 -m ahocorasick_tpu_torch.cli`) in a process
+     of its own on files under chiprun_out/ (removed afterwards): dict1k
+     over the 64 MiB prose with --count-only and --overlapping, and
+     --engine cascade over 4 MiB, each count equal to the native walk's;
+ 14. sharded search over a mesh of four entries of the card (and of every
+     card where there are several): the staged count (G3, G4), the
+     bit-parallel count and pairs (G1), the fingerprint pairs (G5), the
+     cascade pairs (G6) and the stream replace (G1), each equal to the
+     single-device truth and timed beside the single-device call; each
+     kernel held against its plain version on the row and window of
+     shard 1 and of the last shard, as the call launched it;
+ 15. timing of each kernel at those shapes, with the thread count and the
      segment plan (P segments of Ls bytes per stream) that each wrapper
      records at launch; the device time of the copies that the staged
      kernels no longer need (the stream-major layout and the candidate
@@ -53,7 +73,7 @@ facade call; kernel-vs-plain launches are not counted):
      whole facade calls (host clock, median of 7) with a torch.profiler
      trace of one call each for the device's idle share; the parts of the
      64 MiB staged count and of the dict100k cascade count and extraction;
- 13. a `kernels` JSON line (launches from the facade calls, errors, times,
+ 16. a `kernels` JSON line (launches from the facade calls, errors, times,
      bounds), then the card's name and power limit, then the final
      `{"ok": true, ...}` line.
 
@@ -62,9 +82,11 @@ anything fails. Details go to chiprun_out/chip_smoke.json.
 """
 
 import argparse
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -204,6 +226,22 @@ def overlapping_order(pats, pairs):
     """Report order of an overlapping search: end asc, then length desc,
     then pattern id asc."""
     return sorted(pairs, key=lambda t: (t[2], -len(pats[t[0]]), t[0]))
+
+
+def leftmost_first(pairs):
+    """Leftmost-first find_iter from the overlapping set: the leftmost
+    start at or after the previous match's end, ties by pattern id."""
+    out, cursor = [], 0
+    for t in sorted(pairs, key=lambda t: (t[1], t[0])):
+        if t[1] >= cursor:
+            out.append(t)
+            cursor = t[2]
+    return out
+
+
+def pair_list(got):
+    """(pids, ends) arrays as a list of (pid, end)."""
+    return list(zip(got[0].tolist(), got[1].tolist()))
 
 
 def standard_nonoverlapping(pats, pairs):
@@ -411,7 +449,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from ahocorasick_tpu_torch import AhoCorasick, _build
+        from ahocorasick_tpu_torch import AhoCorasick, MatchKind, _build
+        from ahocorasick_tpu_torch.packed import Config as PackedConfig
+        from ahocorasick_tpu_torch.packed import Searcher
+        from ahocorasick_tpu_torch.parallel.shard import (
+            Mesh,
+            make_mesh,
+            sharded_bitap_count,
+            sharded_bitap_match_pairs,
+            sharded_cascade_match_pairs,
+            sharded_fp_match_pairs,
+            sharded_staged_count,
+            sharded_stream_replace_all,
+        )
+        from ahocorasick_tpu_torch.stream import stream_replace_all
         from ahocorasick_tpu_torch.ops import bitap as TB
         from ahocorasick_tpu_torch.ops import bitap_kernels as TK
         from ahocorasick_tpu_torch.ops import cascade as TC
@@ -529,6 +580,50 @@ def main() -> int:
         pair = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
         errs[k] = max(errs[k], max_abs_err(pair(got), pair(want)))
 
+    # Each kernel's wrapper (module, name) and its plain version, which
+    # takes the wrapper's own arguments.
+    wrappers = {
+        "G1": (TK, "bitap_scan_generic", TK.bitap_scan_generic_plain),
+        "G2": (TK, "bitap_scan_baked", TK.bitap_scan_baked_plain),
+        "G3": (SK, "staged_flags", SK.staged_flags_plain),
+        "G4": (SK, "staged_gathered", SK.staged_gathered_plain),
+        "G5": (FK, "fp_bitmap_generic",
+               lambda *a: FK.fp_bitmap_plain(*a[:6], tuple(a[6:]))),
+        "G6": (FK, "fp_bitmap_baked",
+               lambda *a: FK.fp_bitmap_plain(*a, None)),
+    }
+
+    def drive_held(fn, expect, picks=(1, -1)):
+        """drive(fn, expect) with the arguments of every wrapper call
+        recorded; then, per kernel, the launches at ``picks`` (on a mesh
+        of four, shard 1 and the last shard) run again through the
+        wrapper and its plain version on the same inputs, outside the
+        counted run. Returns drive's result and the launches held per
+        kernel."""
+        seen = {k: [] for k in wrappers}
+        real = {k: getattr(m, name) for k, (m, name, _) in wrappers.items()}
+
+        def spy(k):
+            def call(*a):
+                seen[k].append(a)
+                return real[k](*a)
+            return call
+        for k, (m, name, _) in wrappers.items():
+            setattr(m, name, spy(k))
+        try:
+            out = drive(fn, expect)
+        finally:
+            for k, (m, name, _) in wrappers.items():
+                setattr(m, name, real[k])
+        held = {}
+        for k, args in seen.items():
+            at = sorted({j % len(args) for j in picks}) if args else []
+            for j in at:
+                err(k, real[k](*args[j]), wrappers[k][2](*args[j]))
+            if at:
+                held[k] = at
+        return out, held
+
     triples = lambda it: [m.astuple() for m in it]  # noqa: E731
     names = [p.decode() for p in NAMES]
     ac = AhoCorasick(names, device=dev)
@@ -619,7 +714,8 @@ def main() -> int:
     assert eng_np.tables.pad_byte is None
     hay_np = random_with(nopad, 64 * MIB, 20_000, rng)
     got, _ = drive(lambda: ac_np.count_matches(hay_np), ["G1"])
-    check("G1 no-pad count 64 MiB", got, len(host_pairs(nopad, hay_np)))
+    n_np = len(host_pairs(nopad, hay_np))
+    check("G1 no-pad count 64 MiB", got, n_np)
     ph_np = eng_np.prepare(hay_np)
     a_np = eng_np._args() + (ph_np.halo_a, ph_np.body, 0, len(hay_np), False)
     err("G1", TK.bitap_scan_generic(*a_np), TK.bitap_scan_generic_plain(
@@ -869,13 +965,169 @@ def main() -> int:
         f"= native; engine='device-only': the fingerprint engine "
         f"(G6) = native ({time.time() - t0:.1f} s)")
 
+    # 12. The packed searcher --------------------------------------------------
+    t0 = time.time()
+    want_lf16 = leftmost_first(truth16)
+    ac_lf = AhoCorasick(names, match_kind=MatchKind.LEFTMOST_FIRST,
+                        device=dev)
+    check("facade leftmost-first 16 MiB", triples(ac_lf.find_iter(hay16)),
+          want_lf16)
+    packed = Searcher.new(NAMES)
+    assert packed.device == dev and packed._bitap is not None
+    # Two 8 MiB chunks on G2 and the re-split tail on G1, as in phase 4.
+    (got, cp1), h1 = drive_held(lambda: triples(packed.find_iter(hay16)),
+                                ["G1", "G2"])
+    check("packed find_iter 16 MiB", got, want_lf16)
+    names128 = [a + b" " + b for a, b in zip(dict1k[:128], dict1k[128:256])]
+    assert sum(len(p) for p in names128) > 2048
+    hay128 = build_dict_text(16 * MIB, names128, seed=8)
+    want128 = leftmost_first(host_pairs(names128, hay128))
+    packed128 = Searcher.new(names128)
+    assert packed128._bitap is None
+    (got, cp2), h2 = drive_held(
+        lambda: triples(packed128.find_iter(hay128)), ["G6"])
+    check("packed find_iter 128 names 16 MiB", got, want128)
+    assert packed128._fp.dv is not None and not packed128._fp.hostile
+    check("facade leftmost-first 128 names 16 MiB", triples(AhoCorasick(
+        names128, match_kind=MatchKind.LEFTMOST_FIRST,
+        device=dev).find_iter(hay128)), want128)
+    teddy = PackedConfig().only_teddy(True).builder().extend(NAMES).build()
+    got, _ = drive(lambda: triples(teddy.find_iter(hay16)), [])
+    check("packed only_teddy find_iter 16 MiB", got, want_lf16)
+    log(f"[packed] five names 16 MiB: {len(want_lf16)} leftmost-first = "
+        f"facade = host truth, launches G2 {cp1['G2']} G1 {cp1['G1']}; "
+        f"{len(names128)} names of {sum(len(p) for p in names128)} B "
+        f"(fingerprint engine, K={packed128._fp.tables.k}) 16 MiB: "
+        f"{len(want128)} = facade = host truth, G6 {cp2['G6']} launch; "
+        f"kernel = plain at these inputs (launches held: {h1}, {h2}); "
+        f"only_teddy 16 MiB (fingerprint in torch on the card, host "
+        f"verify): = host truth ({time.time() - t0:.1f} s)")
+    packed_ms = {
+        name: float(np.median([host_ms(lambda: list(fn())) for _ in
+                               range(3)]))
+        for name, fn in (
+            ("Searcher.new(five names).find_iter 16 MiB (G2, G1)",
+             lambda: packed.find_iter(hay16)),
+            ("facade leftmost-first find_iter, same input",
+             lambda: ac_lf.find_iter(hay16)),
+            ("Searcher.new(128 names).find_iter 16 MiB (G6)",
+             lambda: packed128.find_iter(hay128)),
+            ("only_teddy find_iter 16 MiB (torch fingerprint)",
+             lambda: teddy.find_iter(hay16)))}
+    report["packed_ms"] = packed_ms
+    log("[packed] host clock, median of 3: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in packed_ms.items()) + f" | {card}")
+
+    # 13. The debug CLI, in a process of its own ------------------------------
+    t0 = time.time()
+    cli_dir = os.path.join("chiprun_out", "cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    try:
+        dict_path = os.path.join(cli_dir, "dict1k.txt")
+        with open(dict_path, "wb") as f:
+            f.write(b"\n".join(dict1k) + b"\n")
+        hay_path = os.path.join(cli_dir, "prose64.txt")
+        with open(hay_path, "wb") as f:
+            f.write(hay_d)
+        hay4_path = os.path.join(cli_dir, "prose4.txt")
+        with open(hay4_path, "wb") as f:
+            f.write(hay_d[:4 * MIB])
+        n4 = native.count_matches(hay_d[:4 * MIB])
+        cli_runs = []
+        for path, flags, want in (
+                (hay_path, ["--count-only"], len(truth_d)),
+                (hay_path, ["--overlapping"], len(truth_d)),
+                (hay4_path, ["--engine", "cascade", "--count-only"], n4)):
+            t1 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "ahocorasick_tpu_torch.cli",
+                 dict_path, path, "--ascii-case-insensitive",
+                 "--device", str(dev), *flags],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {flags}: {proc.stderr[-2000:]}")
+            check(f"cli {' '.join(flags)}", int(proc.stdout), want)
+            search = [ln for ln in proc.stderr.splitlines()
+                      if ln.startswith("search time")]
+            cli_runs.append(f"{' '.join(flags)} = {want} ({search[0]}, "
+                            f"process {time.time() - t1:.1f} s)")
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    log("[cli] python3 -m ahocorasick_tpu_torch.cli, dict1k "
+        "--ascii-case-insensitive: " + "; ".join(cli_runs)
+        + f" | {card} ({time.time() - t0:.1f} s)")
+
+    # 14. Sharded search over a mesh -------------------------------------------
+    t0 = time.time()
+    want_p16 = [(p, e) for p, _, e in want_ov16]
+    want_pd = [(p, e) for p, _, e in truth_d]
+    want_pc = [(p, e) for p, _, e in truth_c]
+    reps = [b"<%d>" % i for i in range(len(NAMES))]
+
+    def replace(fn):
+        out = io.BytesIO()
+        fn(out)
+        return out.getvalue()
+    want_rep = replace(lambda out: stream_replace_all(
+        ac, io.BytesIO(hay16), out, reps, chunk_size=MIB))
+    cas_caps = dict(cas._caps)
+    meshes = [Mesh([torch.device(dev.type, 0)] * 4)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    shard_rows = []
+    for mi, mesh in enumerate(meshes):
+        calls = [
+            ("sharded_staged_count, five names, 64 MiB", ["G3", "G4"],
+             lambda: sharded_staged_count(st, hay64, mesh), len(truth64),
+             lambda: ac.count_matches(hay64)),
+            ("sharded_bitap_count, 32 no-pad patterns, 64 MiB", ["G1"],
+             lambda: sharded_bitap_count(eng_np, hay_np, mesh), n_np,
+             lambda: ac_np.count_matches(hay_np)),
+            ("sharded_bitap_match_pairs, five names, 16 MiB", ["G1"],
+             lambda: pair_list(sharded_bitap_match_pairs(eng, hay16, mesh)),
+             want_p16, lambda: eng.match_pairs(hay16)),
+            ("sharded_fp_match_pairs, dict1k, 64 MiB", ["G5"],
+             lambda: pair_list(sharded_fp_match_pairs(fpd, hay_d, mesh)),
+             want_pd, lambda: fpd.match_pairs(hay_d)),
+            ("sharded_cascade_match_pairs, dict100k, 64 MiB", ["G6"],
+             lambda: pair_list(sharded_cascade_match_pairs(cas, hay_c,
+                                                           mesh)),
+             want_pc, lambda: cas.match_pairs(hay_c)),
+            ("sharded_stream_replace_all, five names, 16 MiB in 1 MiB "
+             "chunks", ["G1"],
+             lambda: replace(lambda out: sharded_stream_replace_all(
+                 ac, io.BytesIO(hay16), out, reps, mesh=mesh,
+                 chunk_size=MIB)), want_rep,
+             lambda: replace(lambda out: stream_replace_all(
+                 ac, io.BytesIO(hay16), out, reps, chunk_size=MIB))),
+        ]
+        for name, expect, call, want, single in calls:
+            (got, c), held = drive_held(call, expect)
+            check(f"{name} on {mesh}", got, want)
+            if mi:
+                continue
+            ms = float(np.median([host_ms(call) for _ in range(3)]))
+            ms1 = float(np.median([host_ms(single) for _ in range(3)]))
+            shard_rows.append(dict(name=name, mesh=str(mesh), ms=ms,
+                                   single_device_ms=ms1, launches=c,
+                                   held_against_plain=held))
+            log(f"[shard] {name}, {mesh.size} x {mesh.devices[0]}: = "
+                f"single device = truth; launches " + ", ".join(
+                    f"{k} {v}" for k, v in c.items() if v)
+                + f"; kernel = plain at launches {held}; {ms:.3f} ms (median of 3, host clock) against "
+                f"{ms1:.3f} ms on one device | {card}")
+    assert cas._caps == cas_caps  # the sharded calls kept their caps
+    report["sharded"] = shard_rows
+    log(f"[shard] meshes {', '.join(str(m) for m in meshes)}: every call = "
+        f"truth ({time.time() - t0:.1f} s)")
+
     log(f"[launches] facade calls: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()))
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} was never launched on a facade path")
 
-    # 12. Timing ------------------------------------------------------------------
+    # 15. Timing ------------------------------------------------------------------
     def row(name, K, n, lanes, out_per_byte, kern, plain, seg, popc=True,
             extra_in=0):
         """One timed kernel; ``seg`` reads the (threads, P, Ls) that the
@@ -1189,7 +1441,7 @@ def main() -> int:
                                    ncand=ncand, expanded=ne, caps=[
                                        cap_c, cap_e, cap_m])
 
-    # 13. Result lines ---------------------------------------------------------------
+    # 16. Result lines ---------------------------------------------------------------
     def entry(k, fn, src, line, r):
         return dict(name=f"{k} {fn}", route="cuda",
                     source=f"ahocorasick_tpu_torch/csrc/{src}",

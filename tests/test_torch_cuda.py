@@ -395,3 +395,96 @@ def test_cascade_engine_equals_its_cpu_run(dev, name):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert card.last_caps == cpu.last_caps and card.level == cpu.level
+
+
+
+@pytest.mark.parametrize("force", [None, "teddy", "rabinkarp"])
+def test_packed_searcher_equals_its_cpu_run(dev, force):
+    """The packed searcher on the card against the same searcher on the
+    CPU: the default engine (G1 at this size), Teddy and Rabin-Karp, and
+    a set beyond the bit-parallel bounds (the fingerprint engine)."""
+    from ahocorasick_tpu_torch.packed import Config
+
+    def build(pats, d):
+        c = Config().device(d)
+        if force == "teddy":
+            c.only_teddy(True)
+        elif force == "rabinkarp":
+            c.only_rabin_karp(True)
+        return c.builder().extend(pats).build()
+
+    names = _cascade_names(360)
+    big = [b"-".join(names[i::120]) for i in range(120)]
+    assert sum(len(p) for p in big) > 2048
+    for pats in (NAMES, big):
+        hay = _hay(300_000, 16, pats)
+        TK.reset_counts()
+        FK.reset_counts()
+        card, cpu = build(pats, dev), build(pats, "cpu")
+        got = [m.astuple() for m in card.find_iter(hay)]
+        assert got == [m.astuple() for m in cpu.find_iter(hay)]
+        assert len(got) > 20
+        assert card.memory_usage() == cpu.memory_usage()
+        if force is None:
+            assert (TK.generic_launches if pats is NAMES
+                    else FK.generic_launches) >= 1
+
+
+def test_four_entry_mesh_equals_cpu_mesh(dev):
+    """Every sharded function on a mesh of four entries of the card
+    against the same call on four CPU entries, with the kernels each
+    launched once per shard."""
+    import io
+
+    from ahocorasick_tpu_torch.ops import cascade as TC
+    from ahocorasick_tpu_torch.parallel import shard as SH
+
+    card, cpu = SH.Mesh([dev] * 4), SH.Mesh(["cpu"] * 4)
+    on = ((card, dev), (cpu, "cpu"))
+
+    def both(fn):
+        a, b = fn(card), fn(cpu)
+        if isinstance(a, tuple):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        else:
+            assert a == b
+        return a
+
+    def reset():
+        TK.reset_counts()
+        SK.reset_counts()
+        FK.reset_counts()
+        return lambda: (TK.generic_launches, SK.flags_launches,
+                        SK.gathered_launches, FK.generic_launches,
+                        FK.baked_launches)
+
+    hay = _hay(1 << 20, 17, NAMES)
+    ac = {m: AhoCorasick(NAMES, device=d) for m, d in on}
+    st = {m: TS.StagedEngine(NAMES, False, d) for m, d in on}
+    launched = reset()
+    assert both(lambda m: SH.sharded_bitap_count(
+        ac[m]._bitap_engine(), hay, m)) > 40
+    both(lambda m: SH.sharded_bitap_match_pairs(ac[m]._bitap_engine(),
+                                                hay, m))
+    both(lambda m: SH.sharded_staged_count(st[m], hay, m))
+    assert launched() == (8, 4, 4, 0, 0)
+    big = _cascade_names(300)
+    hb = _hay(1 << 19, 18, big)
+    fp = {m: TF.FingerprintEngine(big, False, d) for m, d in on}
+    cpats = _cascade_names(3000)
+    hc = _hay(1 << 19, 19, cpats)
+    cas = {m: TC.CascadeEngine(cpats, False, d) for m, d in on}
+    launched = reset()
+    assert len(both(lambda m: SH.sharded_fp_match_pairs(fp[m], hb, m))[0])
+    assert len(both(lambda m: SH.sharded_cascade_match_pairs(
+        cas[m], hc, m))[0]) > 10
+    assert launched() == (0, 0, 0, 4, 4)
+    reps = [b"<%d>" % i for i in range(len(NAMES))]
+
+    def replace(m):
+        out = io.BytesIO()
+        SH.sharded_stream_replace_all(ac[m], io.BytesIO(hay), out, reps,
+                                      mesh=m, chunk_size=1 << 18)
+        return out.getvalue()
+    assert both(replace) == ac[cpu].try_replace_all_bytes(hay, reps)

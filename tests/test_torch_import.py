@@ -1,5 +1,6 @@
-"""The port stands alone: importing it loads neither JAX nor the JAX
-package, and no source of the port (or chip_smoke.py) imports either."""
+"""The port stands alone: importing it (its packed searcher, sharded
+search and CLI included) loads neither JAX nor the JAX package, and no
+source of the port (or chip_smoke.py) imports either."""
 
 import os
 import re
@@ -26,6 +27,16 @@ def test_import_loads_no_jax():
         "device_threshold=0).count_matches(b'xabcdefg' * 600)\n"
         "T.AhoCorasick(['abcdef', 'bcdefg'], device='cpu', "
         "engine='fingerprint').count_matches(b'xabcdefg' * 600)\n"
+        "import ahocorasick_tpu_torch.packed, ahocorasick_tpu_torch.cli\n"
+        "from ahocorasick_tpu_torch.parallel import shard\n"
+        "from ahocorasick_tpu_torch.packed import Config, teddy\n"
+        "s = Config().device('cpu').only_teddy(True).builder().extend("
+        "['abc', 'bcd']).build()\n"
+        "assert [m.astuple() for m in s.find_iter(b'xabcd' * 900)][:1] == "
+        "[(0, 1, 4)]\n"
+        "ac = T.AhoCorasick(['ab', 'bc'], device='cpu')\n"
+        "assert shard.sharded_bitap_count(ac._bitap_engine(), b'xabc' * 600, "
+        "shard.make_mesh(4, 'cpu')) == 1200\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'ahocorasick_tpu' or "
         "m.startswith('ahocorasick_tpu.'))\n"
