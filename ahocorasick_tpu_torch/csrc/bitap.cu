@@ -50,15 +50,50 @@
 //     guard (step_padded): limbs K..KR-1 have zero tables and masks. The
 //     compiled step issues about 7 instructions per limb and byte step,
 //     against 12.6-13.1 with a `k < K` branch per limb.
-//   - The register buckets over K, the shared-memory nybble tables and
-//     the spill path beyond 64 limbs are the shared core in shift_and.cuh.
-//     Decollided chain packing can spread an eligible set over up to 2048
-//     limbs (256 three-byte patterns give K = 229).
+//   - The register buckets over K and the shared-memory nybble tables are
+//     the shared core in shift_and.cuh. Decollided chain packing can
+//     spread an eligible set over up to 2048 limbs (256 three-byte
+//     patterns give K = 229, 128 words of 4-8 bytes K = 103).
+//   - Beyond 64 limbs, limb groups (group_kernel): a stream's K limbs go
+//     to G consecutive lanes of one warp, G the least power of two with
+//     G * KR >= K, lane g holding limbs [g*KR, (g+1)*KR) in registers
+//     (KR = 32 up to K = 1024). The step reads the OLD state of the limb
+//     below, so a lane's carry into its first limb is the old top limb of
+//     lane g - 1: one __shfl_up_sync per byte, before the lane's limb
+//     loop, which then runs step_rows as the register path does. Threads
+//     are S * P * G (scan_plan in ops/bitap_kernels.py), 256 per block.
+//     Beyond K = 1024 a warp of 32 lanes cannot hold the limbs at KR = 32:
+//     of the two ways out (two warps per stream with the carry passed
+//     through shared memory, a barrier per byte; or KR = 64 per lane) this
+//     takes KR = 64, with ptxas's spill report read in chip_smoke.py.
+//     Lanes whose slice starts at or past limb K get zero start and end
+//     masks and read slice 0's tables: nothing they compute is reported,
+//     and carries only flow upward, so they disturb no live limb.
+//   - The group's tables sit in shared memory, one slice of KR limbs per
+//     lane, each slice's stride padded by 32 / G words: the G lanes of a
+//     stream read the same nybble row of their G slices, which then fall
+//     in G different banks (an unpadded stride of 16 * KR words puts them
+//     all in one). Where 128 * K bytes do not fit next to the ring
+//     (K > 1728, KR = 64), lanes read the tables from device memory
+//     through L1; the last live lane then reads rows past limb K-1 up to
+//     its slice's end, which the tables' allocation must hold
+//     (padded_tables in ops/bitap_kernels.py): those rows feed only limbs
+//     with zero masks, so their values do not matter.
+//   - Every lane of a group loads the group's word through the cp.async
+//     ring: the lanes name one address, which the load broadcasts (lane 0
+//     loading alone and a __shfl_sync handing the word on was measured
+//     slower; PERF.md). Counts are summed over the group
+//     (__shfl_xor_sync) into one atomicAdd per (segment, stream); G1's
+//     end words are written by the lane that holds the limb, at
+//     [tile, t, k, stream]; G2's end-bearing limbs are numbered across
+//     the group once per thread (a popcount prefix over
+//     the lanes below, by shuffles), so each lane writes its own in limb
+//     order.
 //   - Measured (chip_smoke.py, H100 SXM at 700 W): 48-56% of the
 //     operations bound on 64 MiB counts (K = 3 and 15), 66% of the bytes
 //     bound on an 8 MiB extraction chunk, 6-23% on the 0.6-2 MiB shapes,
-//     where a launch of a few microseconds is most of the time, and 4% on
-//     the K = 229 spill path, whose limb state lives in L2.
+//     where a launch of a few microseconds is most of the time. The K > 64
+//     rows are in PERF.md.
 //
 // Each entry point launches on the caller's stream, never synchronises,
 // allocates nothing, and returns cudaGetLastError() so the caller can
@@ -71,21 +106,20 @@ namespace {
 using namespace shift_and;
 
 struct Params {
-  const uint32_t* lo;     // [K, 16]
-  const uint32_t* hi;     // [K, 16]
+  const uint32_t* lo;     // [K, 16] (group tables in device memory: the
+  const uint32_t* hi;     //  allocation holds whole slices of KR limbs)
   const uint32_t* sm;     // [K] chain-start bits
   const uint32_t* em;     // [K] chain-end bits
   const uint32_t* halo;   // [Hw, S] words, stream-major
   const uint32_t* body;   // [Wb, S] words, stream-major
   int32_t* counts;        // [S], zeroed by the caller (segments add)
   int32_t* words;         // [tiles, L, kdim, 1024] or null (count only)
-  uint32_t* state;        // [K, state_row] scratch (K > 64) or null
-  int state_row;          // words per limb row of state, >= S*P
   int K;
   int Hw;
   int Wb;
   int S;
   int P;                  // segments per stream, dividing Wb
+  int G;                  // lanes per stream: 1, or a limb group's 4..32
   int kdim;
   long long n0;           // count window [n0, n) (G1 only)
   long long n;
@@ -103,7 +137,7 @@ __global__ void __launch_bounds__(kSegThreads) scan_kernel(Params p) {
   const int s = g.s;
 
   Limbs<KR> st;
-  init_padded<KR>(st, p.sm, p.em, p.state, g.t, p.state_row, K);
+  init_padded<KR>(st, p.sm, p.em, nullptr, 0, 0, K);
   const SegmentRows rows{p.halo, p.body, static_cast<size_t>(p.S), p.Hw,
                          g.w0, g.j == 0};
   // Stream 0's halo wraps around to the end of the buffer: no history.
@@ -152,7 +186,7 @@ __global__ void __launch_bounds__(kSegThreads) scan_kernel(Params p) {
                            static_cast<int32_t>(h);
                        ++slot;
                      }
-                   } else if (KR == 0 || k < K) {
+                   } else if (k < K) {
                      wrow[static_cast<size_t>(k) * kLanes] =
                          static_cast<int32_t>(h);
                    }
@@ -163,18 +197,237 @@ __global__ void __launch_bounds__(kSegThreads) scan_kernel(Params p) {
   if (cnt != 0) atomicAdd(p.counts + s, cnt);
 }
 
+// ---------------------------------------------------------------------------
+// Limb groups (K > 64)
+// ---------------------------------------------------------------------------
+constexpr int kGroupThreads = 256;  // threads per block
+constexpr unsigned kWarp = 0xFFFFFFFFu;
+
+// Words of one lane's slice of lo (or hi) in shared memory: KR limbs of 16
+// words, padded so that the G slices of a group start 32 / G banks apart.
+__host__ __device__ constexpr int group_stride(int KR, int G) {
+  return 16 * KR + 32 / G;
+}
+
+// Dynamic shared memory of a limb-group block: lo and hi, one slice per
+// lane that holds a live limb (if the tables are in shared memory), then
+// the ring.
+inline size_t group_shmem_bytes(int K, int KR, int G, bool shared_tables) {
+  const size_t live = (K + KR - 1) / KR;
+  const size_t tables =
+      shared_tables ? 2 * live * static_cast<size_t>(group_stride(KR, G))
+                    : 0;
+  return (tables + static_cast<size_t>(kRing) * kGroupThreads) *
+         sizeof(uint32_t);
+}
+
+// The (segment, stream, lane of the group) of this thread. A warp holds
+// 32 / G consecutive streams of one segment, each on G consecutive lanes;
+// the segments of a run of streams sit in neighbouring warps, as in
+// segment_of.
+struct GroupSegment {
+  int s;   // stream
+  int j;   // segment
+  int g;   // lane in the group: limbs [g*KR, (g+1)*KR)
+  int w0;  // first body word of the segment
+  int nw;  // body words per segment, Wb / P
+};
+
+__device__ __forceinline__ bool group_of(int S, int P, int G, int Wb,
+                                         GroupSegment& q) {
+  const int t = blockIdx.x * kGroupThreads + threadIdx.x;
+  if (t >= S * P * G) return false;  // whole warps: S is a multiple of 1024
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  q.j = warp % P;
+  q.s = (warp / P) * (32 / G) + lane / G;
+  q.g = lane & (G - 1);
+  q.nw = Wb / P;
+  q.w0 = q.j * q.nw;
+  return true;
+}
+
+template <int KR, bool BAKED, bool EXTRACT, bool SHARED_TABLES>
+__global__ void __launch_bounds__(kGroupThreads) group_kernel(Params p) {
+  extern __shared__ uint32_t smem[];  // lo, hi slices (or none), the ring
+  const int K = p.K;
+  const int G = p.G;
+  const int live = (K + KR - 1) / KR;
+  const int stride = SHARED_TABLES ? group_stride(KR, G) : 16 * KR;
+  const uint32_t* LO = p.lo;
+  const uint32_t* HI = p.hi;
+  uint32_t* ring = smem;
+  if constexpr (SHARED_TABLES) {
+    for (int i = threadIdx.x; i < live * 16 * KR; i += kGroupThreads) {
+      const int at = i / (16 * KR) * stride + i % (16 * KR);
+      const bool on = i < 16 * K;
+      smem[at] = on ? p.lo[i] : 0u;
+      smem[live * stride + at] = on ? p.hi[i] : 0u;
+    }
+    __syncthreads();
+    LO = smem;
+    HI = smem + live * stride;
+    ring = smem + 2 * live * stride;
+  }
+  GroupSegment q;
+  if (!group_of(p.S, p.P, G, p.Wb, q)) return;
+  const int s = q.s;
+  const int k0 = q.g * KR;
+  const int nlive = K - k0;  // live limbs of this lane: <= 0 for none
+  LO += (nlive > 0 ? q.g : 0) * stride;
+  HI += (nlive > 0 ? q.g : 0) * stride;
+
+  Limbs<KR> st;
+#pragma unroll
+  for (int k = 0; k < KR; ++k) {
+    st.m[k] = 0u;
+    st.sm[k] = k < nlive ? p.sm[k0 + k] : 0u;
+    st.em[k] = k < nlive ? p.em[k0 + k] : 0u;
+  }
+  // G2's word slot of this lane's first end-bearing limb: the end-bearing
+  // limbs of the lanes below it (an inclusive scan over the group).
+  int slot0 = 0;
+  if constexpr (BAKED && EXTRACT) {
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < KR; ++k) mine += st.em[k] != 0u ? 1 : 0;
+    int below = mine;
+    for (int d = 1; d < G; d <<= 1) {
+      const int v = __shfl_up_sync(kWarp, below, d, G);
+      below += q.g >= d ? v : 0;
+    }
+    slot0 = below - mine;
+  }
+  // One shuffle per byte: the old top limb of the lane below (0 for the
+  // group's first lane), before this lane's limbs change.
+  auto carry = [&]() {
+    const uint32_t c = __shfl_up_sync(kWarp, st.m[KR - 1], 1, G);
+    return q.g == 0 ? 0u : c;
+  };
+  const SegmentRows rows{p.halo, p.body, static_cast<size_t>(p.S), p.Hw,
+                         q.w0, q.j == 0};
+  // Stream 0's halo wraps around to the end of the buffer: no history.
+  const bool reset_at_body = s == 0 && q.j == 0;
+
+  const long long L = 4LL * p.Wb;
+  const long long pos0 = static_cast<long long>(s) * L;
+  const size_t tile = static_cast<size_t>(s / kLanes);
+  const int col = s % kLanes;
+  int cnt = 0;
+  // Every lane of a warp walks the same rows (one segment), so the
+  // shuffles run converged.
+  walk_rows<kGroupThreads>(rows, s, p.Hw + q.nw, ring,
+                           [&](int i, uint32_t word) {
+    if (i < p.Hw) {  // warm-up: no hits counted
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const uint32_t b = (word >> (8 * jj)) & 255u;
+        step_rows<KR>(st, LO + (b & 15u), HI + (b >> 4),
+                      [](int, uint32_t) {}, carry());
+      }
+      return;
+    }
+    if (reset_at_body && i == p.Hw) reset<KR>(st, K);
+    const long long w = q.w0 + i - p.Hw;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const long long t = 4 * w + jj;
+      uint32_t ok = ~0u;
+      if constexpr (!BAKED) {
+        ok = pos0 + t >= p.n0 && pos0 + t < p.n ? ~0u : 0u;
+      }
+      int32_t* wrow = nullptr;
+      if constexpr (EXTRACT) {
+        wrow = p.words + ((tile * L + t) * p.kdim) * kLanes + col;
+      }
+      int slot = slot0;
+      const uint32_t b = (word >> (8 * jj)) & 255u;
+      step_rows<KR>(
+          st, LO + (b & 15u), HI + (b >> 4),
+          [&](int k, uint32_t nm) {
+            const uint32_t h = nm & st.em[k] & ok;
+            cnt += __popc(h);
+            if constexpr (EXTRACT) {
+              if constexpr (BAKED) {
+                if (st.em[k] != 0u) {
+                  wrow[static_cast<size_t>(slot) * kLanes] =
+                      static_cast<int32_t>(h);
+                  ++slot;
+                }
+              } else if (k < nlive) {
+                wrow[static_cast<size_t>(k0 + k) * kLanes] =
+                    static_cast<int32_t>(h);
+              }
+            }
+          },
+          carry());
+    }
+  });
+  for (int d = G >> 1; d > 0; d >>= 1) {
+    cnt += __shfl_xor_sync(kWarp, cnt, d, G);
+  }
+  if (q.g == 0 && cnt != 0) atomicAdd(p.counts + s, cnt);
+}
+
+template <int KR, bool BAKED, bool EXTRACT, bool SHARED_TABLES>
+cudaError_t launch_group(const Params& p, cudaStream_t stream) {
+  const size_t bytes = group_shmem_bytes(p.K, KR, p.G, SHARED_TABLES);
+  auto kernel = group_kernel<KR, BAKED, EXTRACT, SHARED_TABLES>;
+  // Beyond the default 48 KiB a block must opt in. The size opted into is
+  // remembered per kernel and device, so that launches captured into a
+  // graph after a first launch make no attribute call.
+  static int opted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (bytes > (48u << 10) &&
+      (dev >= 64 || opted[dev] < static_cast<int>(bytes))) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    if (dev < 64) opted[dev] = static_cast<int>(bytes);
+  }
+  const long long threads = static_cast<long long>(p.S) * p.P * p.G;
+  kernel<<<static_cast<int>((threads + kGroupThreads - 1) / kGroupThreads),
+           kGroupThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// G = 1: one thread per (segment, stream), the register bucket over K
+// (K <= 64). G > 1: limb groups of G lanes with KR (32 or 64) limbs each.
 template <bool BAKED, bool EXTRACT>
-void launch(const Params& p, cudaStream_t stream) {
-  SHIFT_AND_FOR_BUCKET(
-      p.K, scan_kernel<KR, BAKED, EXTRACT>
-               <<<seg_blocks_for(p.S, p.P), kSegThreads,
-                  seg_shmem_bytes(KR), stream>>>(p));
+cudaError_t launch(const Params& p, int KR, bool shared_tables,
+                   cudaStream_t stream) {
+  if (p.G == 1) {
+    if (p.K > 64) return cudaErrorInvalidValue;
+    SHIFT_AND_FOR_BUCKET(p.K, if constexpr (KR > 0) {
+      scan_kernel<KR, BAKED, EXTRACT>
+          <<<seg_blocks_for(p.S, p.P), kSegThreads, seg_shmem_bytes(KR),
+             stream>>>(p);
+    });
+    return cudaGetLastError();
+  }
+  if (p.G > 32 || (p.G & (p.G - 1)) != 0 || p.G * KR < p.K) {
+    return cudaErrorInvalidValue;
+  }
+  // KR = 32 (K <= 1024) always fits its tables in shared memory; only
+  // KR = 64 may not (K > 1728).
+  if (KR == 32 && shared_tables) {
+    return launch_group<32, BAKED, EXTRACT, true>(p, stream);
+  }
+  if (KR == 64) {
+    return shared_tables
+               ? launch_group<64, BAKED, EXTRACT, true>(p, stream)
+               : launch_group<64, BAKED, EXTRACT, false>(p, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 Params make_params(const void* lo, const void* hi, const void* sm,
                    const void* em, int K, const void* halo, int Hw,
-                   const void* body, int Wb, int S, int P, void* counts,
-                   void* words, int kdim, void* state, int state_row) {
+                   const void* body, int Wb, int S, int P, int G,
+                   void* counts, void* words, int kdim) {
   Params p;
   p.lo = static_cast<const uint32_t*>(lo);
   p.hi = static_cast<const uint32_t*>(hi);
@@ -184,13 +437,12 @@ Params make_params(const void* lo, const void* hi, const void* sm,
   p.body = static_cast<const uint32_t*>(body);
   p.counts = static_cast<int32_t*>(counts);
   p.words = static_cast<int32_t*>(words);
-  p.state = static_cast<uint32_t*>(state);
-  p.state_row = state_row;
   p.K = K;
   p.Hw = Hw;
   p.Wb = Wb;
   p.S = S;
   p.P = P;
+  p.G = G;
   p.kdim = kdim;
   p.n0 = 0;
   p.n = 0;
@@ -202,42 +454,39 @@ Params make_params(const void* lo, const void* hi, const void* sm,
 extern "C" {
 
 // G1. counts: [S] int32, zeroed; words: [tiles, L, K, 1024] int32 or null
-// for a count-only scan; P segments per stream; state: [K, state_row] for
-// K > 64.
+// for a count-only scan; P segments per stream; G lanes per stream (1, or
+// a limb group of KR limbs per lane, the tables in shared memory if
+// tables_in_shared, else read from an allocation of whole slices).
 int bitap_generic_scan(const void* lo, const void* hi, const void* sm,
                        const void* em, int K, const void* halo, int Hw,
-                       const void* body, int Wb, int S, int P, long long n0,
-                       long long n, void* counts, void* words, void* state,
-                       int state_row, void* stream) {
-  Params p = make_params(lo, hi, sm, em, K, halo, Hw, body, Wb, S, P, counts,
-                         words, K, state, state_row);
+                       const void* body, int Wb, int S, int P, int G, int KR,
+                       int tables_in_shared, long long n0, long long n,
+                       void* counts, void* words, void* stream) {
+  Params p = make_params(lo, hi, sm, em, K, halo, Hw, body, Wb, S, P, G,
+                         counts, words, K);
   p.n0 = n0;
   p.n = n;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (words != nullptr) {
-    launch<false, true>(p, st);
-  } else {
-    launch<false, false>(p, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool shared = tables_in_shared != 0;
+  return static_cast<int>(
+      words != nullptr ? launch<false, true>(p, KR, shared, st)
+                       : launch<false, false>(p, KR, shared, st));
 }
 
 // G2. counts: [S] int32, zeroed; words: [tiles, L, Ke, 1024] int32 or null
-// for a count-only scan; P segments per stream; state: [K, state_row] for
-// K > 64.
+// for a count-only scan; P, G, KR and tables_in_shared as for G1.
 int bitap_baked_scan(const void* lo, const void* hi, const void* sm,
                      const void* em, int K, int Ke, const void* halo, int Hw,
-                     const void* body, int Wb, int S, int P, void* counts,
-                     void* words, void* state, int state_row, void* stream) {
-  Params p = make_params(lo, hi, sm, em, K, halo, Hw, body, Wb, S, P, counts,
-                         words, Ke, state, state_row);
+                     const void* body, int Wb, int S, int P, int G, int KR,
+                     int tables_in_shared, void* counts, void* words,
+                     void* stream) {
+  Params p = make_params(lo, hi, sm, em, K, halo, Hw, body, Wb, S, P, G,
+                         counts, words, Ke);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (words != nullptr) {
-    launch<true, true>(p, st);
-  } else {
-    launch<true, false>(p, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool shared = tables_in_shared != 0;
+  return static_cast<int>(
+      words != nullptr ? launch<true, true>(p, KR, shared, st)
+                       : launch<true, false>(p, KR, shared, st));
 }
 
 }  // extern "C"

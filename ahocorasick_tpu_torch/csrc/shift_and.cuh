@@ -8,12 +8,18 @@
 // live in registers (template buckets KR over K, fully unrolled limb loop)
 // and lo/hi sit in shared memory: 16 consecutive words per limb fall in 16
 // distinct banks and equal addresses broadcast, so the per-byte lookups
-// are free of bank conflicts. Beyond 64 limbs (KR == 0) the state goes to
-// a global scratch, one row per limb coalesced across threads, and the
-// tables are read through the read-only cache.
+// are free of bank conflicts. Beyond 64 limbs G1/G2 (bitap.cu) split a
+// stream's limbs over a group of lanes, each holding KR of them in
+// registers, and step_rows takes the carry into a lane's first limb from
+// the lane below. G3/G4 (staged.cu) still keep the state of K > 64 limbs
+// in a global scratch (KR == 0), one row per limb coalesced across
+// threads, and read the tables through the read-only cache; Limbs<0> and
+// the scratch's wrappers (spill_state, segment_state in
+// ops/bitap_kernels.py) stay only for them.
 //
 // Every kernel runs one thread per (segment, stream) (kSegThreads per
-// block). Each L-byte stream is cut into P segments of Ls bytes
+// block; the limb groups of bitap.cu one per (segment, stream, lane of the
+// group)). Each L-byte stream is cut into P segments of Ls bytes
 // (segment_plan in ops/bitap_kernels.py); a segment warms up over the H
 // bytes before it, which is exact because a state bit at chain offset i
 // depends only on the last i + 1 bytes, whatever the state before them,
@@ -44,7 +50,7 @@ namespace shift_and {
 constexpr int kLanes = 1024;   // streams per [8, 128] tile
 
 // Limb state and per-limb constants: registers for KR > 0 (K <= KR),
-// global memory for KR == 0.
+// global memory for KR == 0 (staged.cu's K > 64 path).
 template <int KR>
 struct Limbs {
   uint32_t m[KR > 0 ? KR : 1];
@@ -184,12 +190,13 @@ __device__ __forceinline__ void reset(Limbs<KR>& st, int K) {
 // Advance the KR register limbs by one byte, given the rows of the byte's
 // two nybbles in the tables (lo = LO + (b & 15), hi = HI + (b >> 4));
 // on_limb(k, m') sees each new limb word in limb order. The funnel shift
-// forms (m << 1) | (the old m of the limb below >> 31) at once.
+// forms (m << 1) | (the old m of the limb below >> 31) at once; `below` is
+// the old m of the limb below limb 0 (a limb group's lane below, else 0).
 template <int KR, typename F>
 __device__ __forceinline__ void step_rows(Limbs<KR>& st, const uint32_t* lo,
-                                          const uint32_t* hi, F&& on_limb) {
+                                          const uint32_t* hi, F&& on_limb,
+                                          uint32_t below = 0u) {
   static_assert(KR > 0, "register limbs only");
-  uint32_t below = 0u;
 #pragma unroll
   for (int k = 0; k < KR; ++k) {
     const uint32_t old = st.m[k];
@@ -295,18 +302,19 @@ struct SegmentRows {
 };
 
 // Words in flight: kRing - 1 rows ahead of the one scanned, one word per
-// slot ([kRing][kSegThreads] words, conflict-free).
+// slot ([kRing][kThreads] words, kThreads the block's threads,
+// conflict-free).
 constexpr int kRing = 4;
 
 // Walk rows [0, count) in order, calling on_word(i, word).
-template <typename F>
+template <int kThreads = kSegThreads, typename F>
 __device__ __forceinline__ void walk_rows(const SegmentRows& r, int s,
                                           int count, uint32_t* ring,
                                           F&& on_word) {
   uint32_t* mine = ring + threadIdx.x;
 #pragma unroll
   for (int i = 0; i < kRing - 1; ++i) {
-    if (i < count) cp_async4(mine + i * kSegThreads, r.row(i, s));
+    if (i < count) cp_async4(mine + i * kThreads, r.row(i, s));
     cp_async_commit();
   }
   for (int i = 0; i < count; ++i) {
@@ -315,11 +323,11 @@ __device__ __forceinline__ void walk_rows(const SegmentRows& r, int s,
     // kRing - 1 groups are pending completes row i.
     const int ahead = i + kRing - 1;
     if (ahead < count) {
-      cp_async4(mine + (ahead % kRing) * kSegThreads, r.row(ahead, s));
+      cp_async4(mine + (ahead % kRing) * kThreads, r.row(ahead, s));
     }
     cp_async_commit();
     cp_async_wait<kRing - 1>();
-    on_word(i, mine[(i % kRing) * kSegThreads]);
+    on_word(i, mine[(i % kRing) * kThreads]);
   }
 }
 
@@ -382,7 +390,8 @@ __device__ __forceinline__ void walk_run(const uint32_t* x, long long w0,
 }  // namespace shift_and
 
 // Run the statement(s) after K with `KR` bound to the register bucket for
-// K limbs (1, 2, 3, 4, 8, 16, 32, 64), or to 0 (spill path) beyond 64.
+// K limbs (1, 2, 3, 4, 8, 16, 32, 64), or to 0 (staged.cu's spill path)
+// beyond 64.
 #define SHIFT_AND_FOR_BUCKET(K, ...)                      \
   do {                                                    \
     if ((K) <= 1) {                                       \

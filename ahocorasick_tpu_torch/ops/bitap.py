@@ -219,9 +219,14 @@ class BitapTables:
 
     def device_tensors(self, device: torch.device):
         """(lo, hi, start, end) as int32 tensors on ``device``, cached per
-        device."""
-        return tables_on(self._on_device, device,
-                         (self.lo, self.hi, self.start, self.end))
+        device; lo and hi padded as G1/G2 read them (``padded_tables``)."""
+        device = torch.device(device)
+        if device not in self._on_device:
+            lo, hi, sm, em = (torch.from_numpy(a).to(device) for a in (
+                self.lo, self.hi, self.start, self.end))
+            self._on_device[device] = (*_kernels.padded_tables(lo, hi), sm,
+                                       em)
+        return self._on_device[device]
 
 
 def tables_on(cache: dict, device, arrays) -> tuple:

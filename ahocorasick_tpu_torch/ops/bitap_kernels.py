@@ -18,8 +18,12 @@ On a CPU tensor a wrapper computes its kernel's plain version; on a CUDA
 tensor it launches the kernel (building it with ``nvcc`` at first use) or
 raises. Each wrapper counts its launches in a module-level integer
 (``generic_launches``, ``baked_launches``) so a run can show which kernels
-the main path went through, and keeps the ``(threads, P, Ls)`` it last
+the main path went through, and keeps the ``(threads, P, Ls, G)`` it last
 launched with (``generic_plan``, ``baked_plan``).
+
+Beyond 64 limbs G1/G2 run limb groups: the K limbs of a stream are split
+over G lanes of a warp, KR limbs each in registers (``limb_group``), so a
+launch has S * P * G threads (``scan_plan``).
 """
 
 from __future__ import annotations
@@ -35,25 +39,43 @@ from .._build import I, LL, P
 # Launches of each kernel since the last reset (plain versions not counted).
 generic_launches = 0
 baked_launches = 0
-# (threads, P, Ls) of each kernel's last launch: S * P threads, P segments
-# of Ls bytes per stream.
-generic_plan: Optional[Tuple[int, int, int]] = None
-baked_plan: Optional[Tuple[int, int, int]] = None
+# (threads, P, Ls, G) of each kernel's last launch: S * P * G threads, P
+# segments of Ls bytes per stream, G lanes per stream.
+generic_plan: Optional[Tuple[int, int, int, int]] = None
+baked_plan: Optional[Tuple[int, int, int, int]] = None
 
-# Limbs held in registers by the kernels; beyond this the state spills to a
-# global scratch that the wrapper allocates.
+# Limbs one thread holds in registers (the largest bucket of
+# SHIFT_AND_FOR_BUCKET, csrc/shift_and.cuh). Beyond it, G1/G2 split the
+# limbs over a limb group of lanes; G3/G4 keep the state in a global
+# scratch that their wrappers allocate.
 MAX_REG_LIMBS = 64
+# A limb group: at most a warp's 32 lanes of KR = 32 limbs each, then of
+# KR = 64 (csrc/bitap.cu, group_kernel). 2,048 pattern bytes, the bit-
+# parallel engine's bound, never need more than MAX_GROUP_LIMBS limbs.
+GROUP_LIMBS = (32, 64)
+MAX_GROUP = 32
+MAX_GROUP_LIMBS = MAX_GROUP * GROUP_LIMBS[-1]
+# Threads per block and ring slots of the group kernel (kGroupThreads,
+# kRing in the sources), and the dynamic shared memory one block may opt
+# into on sm_90 (227 KiB): past it the group's tables stay in device
+# memory.
+GROUP_THREADS = 256
+RING = 4
+MAX_SHARED_BYTES = 232_448
 
-# The spill path's limb scratch [K, S*P] is kept within the 50 MB L2.
+# The scratch of G3/G4's spill path [K, S*P] (csrc/staged.cu, K > 64) is
+# kept within the 50 MB L2; these and spill_state / segment_state serve
+# only that path.
 MAX_SPILL_BYTES = 32 << 20
 # Words of padding per limb row of the segmented kernels' scratch: a
 # power-of-two row would map every limb of a thread to the same cache sets.
 SPILL_PAD = 32
 
 LIBRARY = _build.CudaLibrary("bitap.cu", {
-    "bitap_generic_scan": (P, P, P, P, I, P, I, P, I, I, I, LL, LL, P, P, P,
-                           I, P),
-    "bitap_baked_scan": (P, P, P, P, I, I, P, I, P, I, I, I, P, P, P, I, P),
+    "bitap_generic_scan": (P, P, P, P, I, P, I, P, I, I, I, I, I, I, LL, LL,
+                           P, P, P),
+    "bitap_baked_scan": (P, P, P, P, I, I, P, I, P, I, I, I, I, I, I, P, P,
+                         P),
 })
 
 
@@ -131,10 +153,26 @@ def resident_threads(dev: torch.device) -> int:
     return props.multi_processor_count * props.max_threads_per_multi_processor
 
 
+def _most_segments(L: int, H: int, per_segment: int, align: int,
+                   max_threads: int) -> Tuple[int, int]:
+    """(P, Ls): the most segments P of Ls = L / P bytes, Ls a multiple of
+    ``align`` and at least H, with ``per_segment * P`` threads within
+    ``max_threads``; (1, L) where L leaves no room."""
+    if L % align:
+        raise ValueError(f"L={L} is not a multiple of {align}")
+    best = (1, L)
+    for P in range(2, L // align + 1):
+        if L // P < H or per_segment * P > max_threads:
+            break
+        if (L // align) % P == 0:
+            best = (P, L // P)
+    return best
+
+
 def segment_plan(L: int, H: int, S: int, align: int, K: int,
                  resident: int) -> Tuple[int, int]:
-    """(P, Ls): the segmented kernels cut each L-byte stream into P
-    segments of Ls = L / P bytes, one thread per (segment, stream).
+    """(P, Ls) of G3-G6: the segmented kernels cut each L-byte stream into
+    P segments of Ls = L / P bytes, one thread per (segment, stream).
 
     A segment warms up over the H bytes before it (the halo for segment 0,
     the stream's own bytes otherwise), which gives the state of a whole-
@@ -143,19 +181,52 @@ def segment_plan(L: int, H: int, S: int, align: int, K: int,
     ``Ls`` is a multiple of ``align`` (4 for end words, 32 for bitmap
     words), ``Ls >= H`` (the warm-up is at most half a thread's walk), the
     S * P threads fit the card's ``resident`` thread slots and, beyond
-    MAX_REG_LIMBS limbs, the limb scratch stays within MAX_SPILL_BYTES.
-    P = 1 where L leaves no room. Derived from the shapes and the card
-    only."""
-    if L % align:
-        raise ValueError(f"L={L} is not a multiple of {align}")
-    best = (1, L)
-    for P in range(2, L // align + 1):
-        if L // P < H or S * P > resident or (
-                K > MAX_REG_LIMBS and 4 * K * S * P > MAX_SPILL_BYTES):
-            break
-        if (L // align) % P == 0:
-            best = (P, L // P)
-    return best
+    MAX_REG_LIMBS limbs (G3/G4's spill path), the limb scratch stays within
+    MAX_SPILL_BYTES. P = 1 where L leaves no room. Derived from the shapes
+    and the card only."""
+    cap = resident if K <= MAX_REG_LIMBS else min(
+        resident, MAX_SPILL_BYTES // (4 * K))
+    return _most_segments(L, H, S, align, cap)
+
+
+def limb_group(K: int) -> Tuple[int, int]:
+    """(G, KR) of G1/G2 for K limbs: G lanes per stream, KR limbs held in
+    registers by each. K <= MAX_REG_LIMBS: one lane holds all K (in the
+    kernel's register bucket). Beyond: a limb group, KR = 32 (64 past
+    32 x 32 limbs) and G the least power of two with G * KR >= K. From K
+    alone."""
+    if not 1 <= K <= MAX_GROUP_LIMBS:
+        raise ValueError(f"no scan kernel for K={K} limbs (1 .. "
+                         f"{MAX_GROUP_LIMBS})")
+    if K <= MAX_REG_LIMBS:
+        return 1, K
+    KR = next(r for r in GROUP_LIMBS if MAX_GROUP * r >= K)
+    G = 1
+    while G * KR < K:
+        G *= 2
+    return G, KR
+
+
+def group_tables_shared(K: int, G: int, KR: int) -> bool:
+    """Whether a limb group's tables fit in a block's shared memory beside
+    the ring: lo and hi, one slice of KR limbs per lane that holds a live
+    limb, each slice padded by 32 / G words (group_shmem_bytes in
+    csrc/bitap.cu)."""
+    live = -(-K // KR)
+    words = 2 * live * (16 * KR + 32 // G) + RING * GROUP_THREADS
+    return 4 * words <= MAX_SHARED_BYTES
+
+
+def scan_plan(L: int, H: int, S: int, K: int,
+              resident: int) -> Tuple[int, int, int, int]:
+    """(P, Ls, G, KR) of G1/G2: each L-byte stream in P segments of Ls
+    bytes (as segment_plan, with ``align`` 4), each (segment, stream) on G
+    lanes of KR limbs (``limb_group``). The S * P * G threads fit the
+    ``resident`` thread slots, or P = 1 in as many waves as they need.
+    G1/G2 keep no limb scratch, so K puts no other cap on P."""
+    G, KR = limb_group(K)
+    P, Ls = _most_segments(L, H, S * G, 4, resident)
+    return P, Ls, G, KR
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -170,6 +241,36 @@ def launch(dev: torch.device, fn, name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({torch.cuda.get_device_name(dev)})")
+
+
+def padded_tables(lo, hi):
+    """(lo, hi) [K, 16] as G1/G2 read them: views of allocations padded
+    with zero limbs to whole slices of the limb group (``limb_group``),
+    since where a group's tables stay in device memory (K > 1,728) the last
+    live lane reads rows past limb K - 1 up to its slice's end. Those rows
+    feed only limbs with zero masks. The tables' owner pads once
+    (``BitapTables.device_tensors``); for K <= 64 and beyond
+    MAX_GROUP_LIMBS the tables come back as they are."""
+    K = lo.shape[0]
+    if not MAX_REG_LIMBS < K <= MAX_GROUP_LIMBS:
+        return lo, hi
+    rows = -(-K // limb_group(K)[1]) * limb_group(K)[1]
+    return tuple(torch.nn.functional.pad(t, (0, 0, 0, rows - K))[:K]
+                 for t in (lo, hi))
+
+
+def _tables_in_shared(lo, hi, K: int, G: int, KR: int) -> int:
+    """1 where a G1/G2 launch keeps its tables in shared memory, else 0,
+    after checking that the allocations of lo and hi hold the whole slices
+    that the lanes read (``padded_tables``)."""
+    if G == 1 or group_tables_shared(K, G, KR):
+        return 1
+    rows = -(-K // KR) * KR
+    for name, t in (("lo", lo), ("hi", hi)):
+        if t.untyped_storage().nbytes() // 4 - t.storage_offset() < 16 * rows:
+            raise ValueError(f"{name} must be allocated to {rows} limbs for "
+                             f"K={K} (use padded_tables)")
+    return 0
 
 
 def _outputs(dev: torch.device, kdim: int, Wb: int, tiles: int,
@@ -197,15 +298,15 @@ def bitap_scan_generic(lo, hi, sm, em, halo, body, n0: int, n: int,
                                         extract)
     lib = LIBRARY.load()
     S = tiles * 1024
-    nseg, Ls = segment_plan(4 * Wb, 4 * Hw, S, 4, K, resident_threads(dev))
+    nseg, Ls, G, KR = scan_plan(4 * Wb, 4 * Hw, S, K, resident_threads(dev))
     counts, words = _outputs(dev, K, Wb, tiles, extract)
-    state, row = segment_state(dev, K, S * nseg)
+    shared = _tables_in_shared(lo, hi, K, G, KR)
     launch(dev, lib.bitap_generic_scan, "bitap_generic_scan",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
-           halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg, n0, n,
-           counts.data_ptr(), ptr(words), ptr(state), row)
+           halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg, G, KR, shared,
+           n0, n, counts.data_ptr(), ptr(words))
     generic_launches += 1
-    generic_plan = (S * nseg, nseg, Ls)
+    generic_plan = (S * nseg * G, nseg, Ls, G)
     return counts, words
 
 
@@ -235,15 +336,15 @@ def bitap_scan_baked(lo, hi, sm, em, end_limbs: Sequence[int], halo, body,
         raise ValueError("a baked scan needs at least one end-bearing limb")
     lib = LIBRARY.load()
     S = tiles * 1024
-    nseg, Ls = segment_plan(4 * Wb, 4 * Hw, S, 4, K, resident_threads(dev))
+    nseg, Ls, G, KR = scan_plan(4 * Wb, 4 * Hw, S, K, resident_threads(dev))
     counts, words = _outputs(dev, Ke, Wb, tiles, extract)
-    state, row = segment_state(dev, K, S * nseg)
+    shared = _tables_in_shared(lo, hi, K, G, KR)
     launch(dev, lib.bitap_baked_scan, "bitap_baked_scan",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
-           Ke, halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg,
-           counts.data_ptr(), ptr(words), ptr(state), row)
+           Ke, halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg, G, KR,
+           shared, counts.data_ptr(), ptr(words))
     baked_launches += 1
-    baked_plan = (S * nseg, nseg, Ls)
+    baked_plan = (S * nseg * G, nseg, Ls, G)
     return counts, words
 
 

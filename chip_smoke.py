@@ -25,6 +25,13 @@ facade call; kernel-vs-plain launches are not counted):
      16 MiB in two 8 MiB chunks, raw words against the plain version;
   5. G1: count at 594,915 bytes (and its single-pass find_iter), a 64 MiB
      count of a set with no pad byte, a K = 229 set at 1 MiB;
+ 5b. limb groups, G1/G2 beyond 64 limbs: the facade's count of a 128-word
+     set (K = 103, G2) and of the K = 229 set (G1) over 64 MiB, its
+     extraction (engine="bitap", G2) over 2 MiB, counts at K = 461 (G2)
+     and K = 1,121 (G1) over 4 MiB, each against host truth; every
+     LIMB_ROWS launch (G1 and G2 at K = 461 and 1,121 too) against its
+     plain version on the layout the facade gave it, the 64 MiB counts
+     included (G1 at K = 229 runs P = 1 in several waves);
   6. fingerprint fused extract of the five names: find_overlapping_iter
      and find_iter over 16 MiB (G6, verified on the device), find_iter at
      594,915 bytes (G5);
@@ -70,8 +77,12 @@ facade call; kernel-vs-plain launches are not counted):
      records at launch; the device time of the copies that the staged
      kernels no longer need (the stream-major layout and the candidate
      gather, as torch operations);
+      the limb rows (LIMB_ROWS) with their group size G;
      whole facade calls (host clock, median of 7) with a torch.profiler
-     trace of one call each for the device's idle share; the parts of the
+     trace of one call each for the device's idle share (not measured
+     where the trace misses the haystack's upload or reaches outside the
+     call; the device walk's call, with its many launches, is traced
+     last); the parts of the
      64 MiB staged count and of the dict100k cascade count and extraction;
  16. a `kernels` JSON line (launches from the facade calls, errors, times,
      bounds), then the card's name and power limit, then the final
@@ -79,6 +90,13 @@ facade call; kernel-vs-plain launches are not counted):
 
 Exits non-zero without the final line when no CUDA device is present or
 anything fails. Details go to chiprun_out/chip_smoke.json.
+
+    python3 chip_smoke.py --limb-rows [--port-root DIR]
+
+builds csrc/bitap.cu alone and prints the times of the LIMB_ROWS launches
+(G1/G2 beyond 64 limbs) as one JSON line, with the port found under DIR:
+run with another tree's checkout and with this one in turns, within one
+call, it compares the two kernels on the same card and the same bytes.
 """
 
 import argparse
@@ -209,6 +227,71 @@ def random_with(pats, n: int, inserts: int, rng):
         p = pats[i % len(pats)]
         buf[at:at + len(p)] = np.frombuffer(p, np.uint8)
     return buf.tobytes()
+
+
+def limb_sets():
+    """{K: patterns} of the sets whose chains pack into more than 64 limbs
+    (G1/G2's limb groups), defined once for this script and the tests in
+    tests/test_torch_limb_sets.py (numpy alone, so any checkout of the port
+    may be timed beside it): 128 words of 4-8 bytes (K = 103, pad byte 0,
+    no staged route: the shape of a mid-size keyword list), 256
+    three-byte patterns (K = 229, no pad byte), 488 words of 3 bytes
+    (K = 461) and every one-byte pattern with 896 two-byte ones
+    (K = 1,121, 2,048 bytes, no pad byte)."""
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_limb_sets import limb_sets as sets
+    return sets()
+
+
+# The limb-group rows (K > 64): (name, K, haystack bytes, kernel,
+# extract). The 64 MiB counts, the 2 MiB extraction (engine="bitap") and
+# the 4 MiB counts of G2 at K = 461 and G1 at K = 1,121 are the facade's
+# own launches; G1 at K = 461 and G2 at K = 1,121 run every group size
+# (4, 8, 16 lanes of 32 limbs, 32 of 64) through both kernels.
+LIMB_ROWS = (
+    ("G1 count 1 MiB, K=229", 229, MIB, "G1", False),
+    ("G1 count 64 MiB, K=229, no pad byte", 229, 64 * MIB, "G1", False),
+    ("G2 count 64 MiB, K=103 (128 words)", 103, 64 * MIB, "G2", False),
+    ("G2 extract 2 MiB, K=103 (engine='bitap')", 103, 2 * MIB, "G2", True),
+    ("G2 count 4 MiB, K=461", 461, 4 * MIB, "G2", False),
+    ("G1 count 4 MiB, K=461", 461, 4 * MIB, "G1", False),
+    ("G1 count 4 MiB, K=1121, no pad byte", 1121, 4 * MIB, "G1", False),
+    ("G2 count 4 MiB, K=1121", 1121, 4 * MIB, "G2", False),
+)
+
+
+def limb_haystack(pats, K: int, n: int, seed: int) -> bytes:
+    """Random bytes with one pattern copy per 3,300 bytes (at least 3,000),
+    from a generator of its own, so every tree that times the rows scans
+    the same bytes."""
+    return random_with(pats, n, max(3000, n // 3300),
+                       np.random.default_rng([seed, K, n]))
+
+
+def limb_layouts(TB, dev, seed):
+    """{(K, n, kernel): (engine, prepared haystack, haystack)} of
+    LIMB_ROWS, G2 on a buffer padded with the set's pad byte where it has
+    one (as the facade packs it), G1 on a zero-padded one."""
+    sets, hays, out = limb_sets(), {}, {}
+    for _, K, n, kernel, _ in LIMB_ROWS:
+        if (K, n) not in hays:
+            hays[K, n] = limb_haystack(sets[K], K, n, seed)
+        eng = TB.BitapEngine(sets[K], False, dev)
+        assert eng.tables.k == K, (K, eng.tables.k)
+        out[K, n, kernel] = (eng, eng.prepare(hays[K, n],
+                                              baked=kernel == "G2"),
+                             hays[K, n])
+    return out
+
+
+def limb_args(eng, ph, kernel, extract):
+    """The wrapper arguments of a limb row's launch (G1: the window [0, n))."""
+    lo, hi, sm, em = eng._args()
+    if kernel == "G1":
+        return (lo, hi, sm, em, ph.halo_a, ph.body, 0, ph.n, extract)
+    return (lo, hi, sm, em, eng.tables.end_limbs, ph.halo_a, ph.body,
+            extract)
 
 
 def host_pairs(pats, hay: bytes):
@@ -352,24 +435,27 @@ def events_ms(fn):
 
 
 def kernel_ms(fn):
-    """Per-launch device time of a kernel wrapper: REPS launches captured
-    in one CUDA graph, so the wrapper's host-side checks and the launch
-    path are out of the measurement; mean of 5 replays after a warm one."""
+    """Per-launch device time of a kernel wrapper: launches captured in one
+    CUDA graph, so the wrapper's host-side checks and the launch path are
+    out of the measurement; mean of 5 replays after a warm one. A graph
+    holds REPS launches, or as many as take about 2 ms where one launch
+    takes longer than 0.1 ms (each launch keeps its outputs)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    reps = max(1, min(REPS, int(2.0 / max(events_ms(fn), 1e-3))))
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
     graph.replay()
     ms = events_ms(lambda: [graph.replay() for _ in range(5)])
     del graph
-    return ms / (5 * REPS)
+    return ms / (5 * reps)
 
 
 def step_cycles(K, popc):
@@ -402,12 +488,75 @@ def bound(K, n, lanes, out_per_byte, sm_hz, popc, extra_in=0):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def timed_row(name, K, n, lanes, out_per_byte, kern, plain, seg, sm_hz,
+              card, popc=True, extra_in=0):
+    """One timed kernel beside its bound; ``seg`` reads the (threads, P,
+    Ls[, G]) that the kernel's wrapper recorded at its last launch (G = 1
+    where it records none). ``plain`` (None: not timed) runs the plain
+    version."""
+    ms = kernel_ms(kern)
+    threads, P, Ls, *G = seg()
+    G = G[0] if G else 1
+    bms, by = bound(K, n, lanes, out_per_byte, sm_hz, popc, extra_in)
+    r = dict(name=name, K=K, bytes=n, ms=ms,
+             plain_ms=None if plain is None else events_ms(plain),
+             bound_ms=bms, bound_by=by,
+             gbps=n / ms / 1e6, share_of_bound=bms / ms, threads=threads,
+             P=P, Ls=Ls, G=G)
+    plain_txt = ("" if plain is None else
+                 f"plain {r['plain_ms']:.1f} ms, ")
+    log(f"[time] {name}: {ms:.4f} ms ({r['gbps']:.1f} GB/s), {plain_txt}"
+        f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound; "
+        f"{threads} threads, P={P} x Ls={Ls} B, G={G} | {card}")
+    return r
+
+
+def limb_fns(TK, kernel):
+    """(wrapper, plain version) of a limb row's kernel in ``TK``."""
+    if kernel == "G1":
+        return TK.bitap_scan_generic, TK.bitap_scan_generic_plain
+    return TK.bitap_scan_baked, TK.bitap_scan_baked_plain
+
+
+def limb_against_plain(TK, layout, kernel, extract):
+    """(kernel outputs, plain outputs) of one LIMB_ROWS launch, on the
+    layout the facade gave it."""
+    eng, ph, _ = layout
+    a = limb_args(eng, ph, kernel, extract)
+    wrap, plain = limb_fns(TK, kernel)
+    return wrap(*a), plain(*a)
+
+
+def time_limb_rows(TK, layouts, sm_hz, card, with_plain):
+    """Time every LIMB_ROWS launch on ``layouts`` (limb_layouts) through
+    the wrappers of ``TK`` (this tree's bitap_kernels, or another tree's for
+    a before/after comparison in one process), with the plain version's
+    time where ``with_plain``."""
+    rows = {}
+    for name, K, n, kernel, extract in LIMB_ROWS:
+        eng, ph, _ = layouts[K, n, kernel]
+        a = limb_args(eng, ph, kernel, extract)
+        wrap, plain_fn = limb_fns(TK, kernel)
+        kdim = len(eng.tables.end_limbs) if kernel == "G2" else K
+        rows[name] = timed_row(
+            name, K, n, ph.tiles * 1024, 4 * kdim if extract else 0,
+            lambda: wrap(*a), (lambda: plain_fn(*a)) if with_plain else None,
+            (lambda: TK.generic_plan) if kernel == "G1" else (
+                lambda: TK.baked_plan), sm_hz, card)
+    return rows
+
+
 def trace(fn):
     """One call under torch.profiler: (call ms, device-busy ms, the busy
-    time by device activity). Busy time is the union of the device's
-    kernel and copy intervals inside the call (the call's own annotation,
-    which the profiler also lays on the device timeline, is left out);
-    None when the trace holds no device activity."""
+    time by device activity, (first, last) device timestamp in ms from
+    the call's start on the host). Busy time is the union of the device's
+    kernel and copy intervals in the trace, which holds this call alone
+    (the call's own annotation, which the profiler also lays on the
+    device timeline, is left out). The device numbers are None (not
+    measured) when the trace holds no device activity, when any of it
+    lies outside the call's range on the host, or when it shows no
+    host-to-device copy (every traced call uploads its haystack): a trace
+    that lost records would give too high an idle share."""
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -418,19 +567,44 @@ def trace(fn):
     evs = prof.events()
     call = next(e for e in evs if e.name == "chip_smoke_call")
     c0, c1 = call.time_range.start, call.time_range.end
-    dev = sorted((max(e.time_range.start, c0), min(e.time_range.end, c1),
-                  e.name) for e in evs
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in evs
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and e.name != "chip_smoke_call")
-    dev = [d for d in dev if d[1] > d[0]]
+    call_ms = (c1 - c0) / 1e3
     if not dev:
-        return (c1 - c0) / 1e3, None, {}
-    busy, end, by = 0.0, c0, {}
+        return call_ms, None, {}, None
+    busy, end, by = 0.0, dev[0][0], {}
     for a, b, name in dev:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         by[name] = by.get(name, 0.0) + (b - a) / 1e3
-    return (c1 - c0) / 1e3, busy / 1e3, by
+    span = ((dev[0][0] - c0) / 1e3, (end - c0) / 1e3)
+    if span[0] < 0 or end > c1:
+        log(f"[trace] device activity from {span[0]:.3f} to {span[1]:.3f} "
+            f"ms lies outside the {call_ms:.3f} ms call: not measured")
+        return call_ms, None, by, span
+    if not any(k.startswith("Memcpy HtoD") for k in by):
+        log("[trace] the trace holds no record of the haystack's upload: "
+            "not measured")
+        return call_ms, None, by, span
+    return call_ms, busy / 1e3, by, span
+
+
+def log_trace(name, call_ms, busy_ms, by, span, idle_med=None):
+    """The [trace] line of one traced call."""
+    if busy_ms is None:
+        log(f"[trace] {name}: call {call_ms:.3f} ms, device busy not "
+            f"measured")
+        return
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+    med = ("" if idle_med is None else
+           f", {100 * idle_med:.1f}% of the median call")
+    log(f"[trace] {name}: call {call_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, idle {100 * (1 - busy_ms / call_ms):.1f}% of "
+        f"the traced call{med}; device activity from {span[0]:.3f} to "
+        f"{span[1]:.3f} ms of the call; "
+        + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
 
 
 def host_ms(fn):
@@ -441,13 +615,77 @@ def host_ms(fn):
     return (time.perf_counter() - t) * 1e3
 
 
+def card_rates():
+    """(device name, nvidia-smi name and power limit, SM cycles per second
+    of the whole card at its maximum SM clock)."""
+    max_mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (torch.cuda.get_device_name(0), smi("name,power.limit"),
+            sms * max_mhz * 1e6)
+
+
+def limb_rows_main(args) -> int:
+    """--limb-rows: build csrc/bitap.cu alone, hold every LIMB_ROWS launch
+    against its plain version and time it, with the port under
+    --port-root (default: this checkout). Run once with another tree's
+    checkout and once with this one, in turns within one call, it gives
+    both trees' times on the same card and the same bytes."""
+    if args.port_root:
+        sys.path.insert(0, os.path.abspath(args.port_root))
+    try:
+        from ahocorasick_tpu_torch.ops import bitap as TB
+        from ahocorasick_tpu_torch.ops import bitap_kernels as TK
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here: {e}",
+              file=sys.stderr)
+        return 2
+    kind, card, sm_hz = card_rates()
+    t0 = time.time()
+    TK.LIBRARY.load()
+    log(f"[limb rows] {os.path.dirname(TK.__file__)}: bitap.cu built in "
+        f"{time.time() - t0:.1f} s | {card}")
+    layouts = limb_layouts(TB, torch.device("cuda"), args.seed)
+    for name, K, n, kernel, extract in LIMB_ROWS:
+        max_abs_err(*limb_against_plain(TK, layouts[K, n, kernel], kernel,
+                                        extract))
+    log("[limb rows] every launch = plain")
+    rows = time_limb_rows(TK, layouts, sm_hz, card, with_plain=False)
+    # The facade's 64 MiB count of the 128 words (one G2 launch), host
+    # clock ending in a synchronise, median of RUNS.
+    from ahocorasick_tpu_torch import AhoCorasick
+    _, _, hay = layouts[103, 64 * MIB, "G2"]
+    ac = AhoCorasick(limb_sets()[103], device="cuda")
+    call_ms = float(np.median([host_ms(lambda: ac.count_matches(hay))
+                               for _ in range(RUNS)]))
+    log(f"[e2e] 128 words (K=103) count_matches 64 MiB: {call_ms:.3f} ms "
+        f"(median of {RUNS}, host clock) | {card}")
+    traced = trace(lambda: ac.count_matches(hay))
+    log_trace("128 words (K=103) count_matches 64 MiB", *traced)
+    print(json.dumps({"limb_rows": rows, "k103_count_ms": call_ms,
+                      "k103_count_trace": dict(zip(
+                          ("call_ms", "busy_ms", "ms_by_name", "span_ms"),
+                          traced)),
+                      "port": os.path.dirname(TK.__file__), "card": card,
+                      "kind": kind}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--limb-rows", action="store_true",
+                    help="time only the K > 64 rows of G1/G2 (no plain "
+                    "runs, no facade) and print them as one JSON line")
+    ap.add_argument("--port-root", default=None,
+                    help="with --limb-rows: the directory holding the "
+                    "ahocorasick_tpu_torch to time (another tree's "
+                    "checkout); default this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.limb_rows:
+        return limb_rows_main(args)
     try:
         from ahocorasick_tpu_torch import AhoCorasick, MatchKind, _build
         from ahocorasick_tpu_torch.packed import Config as PackedConfig
@@ -480,11 +718,9 @@ def main() -> int:
     report = {"seed": args.seed}
 
     # 1. Environment ---------------------------------------------------------
-    kind = torch.cuda.get_device_name(0)
-    card = smi("name,power.limit")
-    max_mhz = float(smi("clocks.max.sm").split()[0])
+    kind, card, sm_hz = card_rates()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    sm_hz = sms * max_mhz * 1e6
+    max_mhz = sm_hz / sms / 1e6
     nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True).stdout
     log(f"[env] device: {kind} | nvidia-smi: {card}")
@@ -522,7 +758,8 @@ def main() -> int:
         rep = lib.report()
         report["ptxas"][lib.stem] = rep
         for ln in ptxas_summary(rep):
-            if "spill" in ln and " 0 bytes spill" not in ln:
+            if ("spill" in ln and " 0 bytes spill" not in ln) or (
+                    "group_kernel" in ln):
                 log(f"[build] {lib.stem}:{ln}")
     # What the compiled step issues per limb and byte step, warm-up and
     # scanned steps alike, beside the least that the bound counts
@@ -530,19 +767,39 @@ def main() -> int:
     # popc).
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     report["sass"] = {}
+    sass_of = {}
     for name, lib, kernel in (
             ("G6", FK.LIBRARY, "bitmap_kernelILi%dELb0E"),
             ("G4 count", SK.LIBRARY, "gathered_kernelILi%dELb0E"),
             ("G2 count", TK.LIBRARY, "scan_kernelILi%dELb1ELb0E"),
             ("G1 count", TK.LIBRARY, "scan_kernelILi%dELb0ELb0E")):
-        sass = subprocess.run([cuobjdump, "-sass", lib.path],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
+        if lib.stem not in sass_of:
+            sass_of[lib.stem] = subprocess.run(
+                [cuobjdump, "-sass", lib.path], capture_output=True,
+                text=True, timeout=300, check=True).stdout
+        sass = sass_of[lib.stem]
         total, by_op = step_issue(sass, kernel)
         report["sass"][name] = dict(per_limb_byte=total, by_opcode=by_op)
         log(f"[sass] {name} ({kernel % 8}, against KR=4): {total:.3f} "
             f"instructions per limb and byte step: " + ", ".join(
                 f"{op} {v:.3f}" for op, v in by_op.items()))
+    # The limb groups (K > 64): the growth from KR = 32 to KR = 64 gives
+    # what a limb costs; the whole loop of KR = 32 over its byte steps and
+    # 32 limbs counts the per-byte work too (the shuffle once per byte).
+    for name, kernel in (("G1 count", "group_kernelILi%dELb0ELb0ELb1E"),
+                         ("G2 count", "group_kernelILi%dELb1ELb0ELb1E")):
+        growth, _ = step_issue(sass_of[TK.LIBRARY.stem], kernel, 32, 64)
+        loop = word_loop(sass_of[TK.LIBRARY.stem], kernel % 32)
+        steps = round(loop.get("LDS", 0) / (2 * 32))
+        whole = sum(loop.values()) / (steps * 32)
+        shfl = loop.get("SHFL", 0) / steps
+        report["sass"][f"{name} limb groups"] = dict(
+            per_limb_byte=growth, per_limb_byte_with_byte_work=whole,
+            shuffles_per_byte=shfl, loop=loop)
+        log(f"[sass] {name}, limb groups ({kernel % 32}): {growth:.3f} "
+            f"instructions per limb and byte step (KR=32 -> 64), {whole:.3f} "
+            f"with the per-byte work spread over a lane's 32 limbs; "
+            f"{shfl:.2f} SHFL per byte step")
 
     errs = {k: 0 for k in KERNELS}
     launches = {k: 0 for k in KERNELS}
@@ -705,7 +962,7 @@ def main() -> int:
         err("G1", TK.bitap_scan_generic(*hx(ex)),
             TK.bitap_scan_generic_plain(*hx(ex)))
     # The count window [0, 594,915) ends inside a segment of its stream.
-    _, _, Ls_h = TK.generic_plan
+    _, _, Ls_h, _ = TK.generic_plan
     assert (HEADLINE_N % ph_h.L) % Ls_h, (ph_h.L, Ls_h)
 
     nopad = [bytes(range(8 * i, 8 * i + 8)) for i in range(32)]
@@ -732,13 +989,74 @@ def main() -> int:
     for ex in (False, True):
         a = eng_k._args() + (ph_k.halo_a, ph_k.body, 0, len(hay_k), ex)
         err("G1", TK.bitap_scan_generic(*a), TK.bitap_scan_generic_plain(*a))
-    _, P_k, _ = TK.generic_plan
-    assert P_k > 1
+    _, P_k, _, G_k = TK.generic_plan
+    assert P_k > 1 and G_k == 8
     log(f"[G1] 594,915 B count and single-pass find_iter (window ending "
         f"{(HEADLINE_N % ph_h.L) % Ls_h} B into a {Ls_h}-byte segment), "
-        f"64 MiB no pad byte K={eng_np.tables.k}, K=229 at 1 MiB (spill "
-        f"path, P={P_k}): all = host truth; kernel = plain "
+        f"64 MiB no pad byte K={eng_np.tables.k}, K=229 at 1 MiB (limb "
+        f"groups of {G_k} lanes, P={P_k}): all = host truth; kernel = plain "
         f"({time.time() - t0:.1f} s)")
+
+    # 5b. Limb groups: G1/G2 beyond 64 limbs ----------------------------
+    # The facade's own launches at K = 103 (64 MiB count, G2; 2 MiB
+    # extraction with engine="bitap", G2), 229 (64 MiB count, no pad byte,
+    # G1), 461 (4 MiB count, G2) and 1,121 (4 MiB count, G1), each against
+    # host truth; then every LIMB_ROWS launch against its plain version at
+    # the layout the facade gave it, with the facade's plan where the row is
+    # one of its launches, the 64 MiB counts included (the plain version
+    # steps over every stream at once: its time goes with the stream
+    # length, not with the haystack's).
+    t0 = time.time()
+    lsets = limb_sets()
+    layouts = limb_layouts(TB, dev, args.seed)
+    facade_limbs = (
+        ("count 64 MiB", 103, 64 * MIB, "G2", False),
+        ("count 64 MiB, no pad byte", 229, 64 * MIB, "G1", False),
+        ("find_overlapping_iter 2 MiB, engine='bitap'", 103, 2 * MIB, "G2",
+         True),
+        ("count 4 MiB", 461, 4 * MIB, "G2", False),
+        ("count 4 MiB, no pad byte", 1121, 4 * MIB, "G1", False),
+    )
+    counts_of, facade_plans = {}, {}
+    for what, K, n, kernel, extract in facade_limbs:
+        pats = lsets[K]
+        _, _, hay = layouts[K, n, kernel]
+        truth = host_pairs(pats, hay)
+        counts_of[K, n] = len(truth)
+        if extract:
+            acl = AhoCorasick(pats, device=dev, engine="bitap")
+            got, c = drive(lambda: triples(acl.find_overlapping_iter(hay)),
+                           [kernel])
+            check(f"K={K} {what}", got, overlapping_order(pats, truth))
+            got = len(got)
+        else:
+            acl = AhoCorasick(pats, device=dev)
+            assert acl._staged_engine(n) is None
+            got, c = drive(lambda: acl.count_matches(hay), [kernel])
+            check(f"K={K} {what}", got, len(truth))
+        plan = TK.generic_plan if kernel == "G1" else TK.baked_plan
+        assert c[kernel] == 1 and plan[3] == TK.limb_group(K)[0], (c, plan)
+        facade_plans[K, n, kernel] = plan
+        log(f"[limbs] K={K} {what}: {got} matches = host truth; one {kernel} "
+            f"launch, {plan[0]} threads, P={plan[1]} x Ls={plan[2]} B, "
+            f"G={plan[3]}")
+    for name, K, n, kernel, extract in LIMB_ROWS:
+        err(kernel, *limb_against_plain(TK, layouts[K, n, kernel], kernel,
+                                        extract))
+        plan = TK.generic_plan if kernel == "G1" else TK.baked_plan
+        assert plan == facade_plans.get((K, n, kernel), plan), (
+            plan, facade_plans[K, n, kernel])
+        where = ("the facade's launch" if (K, n, kernel) in facade_plans
+                 else "the facade's layout")
+        log(f"[limbs] {name}: kernel = plain ({where}); {plan[0]} threads, "
+            f"P={plan[1]} x Ls={plan[2]} B, G={plan[3]}")
+    log(f"[limbs] every launch at K > 64 = host truth and plain "
+        f"({time.time() - t0:.1f} s)")
+    # The 64 MiB count of the 128-word set, timed end to end (section 15).
+    ac_k103 = AhoCorasick(lsets[103], device=dev)
+    eng_k103 = ac_k103._bitap_engine()
+    _, _, hay_w = layouts[103, 64 * MIB, "G2"]
+    n_k103 = counts_of[103, 64 * MIB]
 
     # 6. Fingerprint fused extract of the five names ----------------------------
     t0 = time.time()
@@ -1130,19 +1448,8 @@ def main() -> int:
     # 15. Timing ------------------------------------------------------------------
     def row(name, K, n, lanes, out_per_byte, kern, plain, seg, popc=True,
             extra_in=0):
-        """One timed kernel; ``seg`` reads the (threads, P, Ls) that the
-        kernel's wrapper recorded at its last launch."""
-        ms = kernel_ms(kern)
-        threads, P, Ls = seg()
-        bms, by = bound(K, n, lanes, out_per_byte, sm_hz, popc, extra_in)
-        r = dict(name=name, K=K, bytes=n, ms=ms, plain_ms=events_ms(plain),
-                 bound_ms=bms, bound_by=by, gbps=n / ms / 1e6,
-                 share_of_bound=bms / ms, threads=threads, P=P, Ls=Ls)
-        log(f"[time] {name}: {ms:.4f} ms ({r['gbps']:.1f} GB/s), plain "
-            f"{r['plain_ms']:.1f} ms, bound {bms:.4f} ms ({by}), "
-            f"{100 * bms / ms:.1f}% of bound; {threads} threads, P={P} x "
-            f"Ls={Ls} B | {card}")
-        return r
+        return timed_row(name, K, n, lanes, out_per_byte, kern, plain, seg,
+                         sm_hz, card, popc, extra_in)
 
     K3, Ke = eng.tables.k, len(eng.tables.end_limbs)
     L64 = sph.L
@@ -1152,8 +1459,6 @@ def main() -> int:
     a64 = (lo, hi, sm, em, eng.tables.end_limbs, ph64.halo_a, ph64.body,
            False)
     err("G2", TK.bitap_scan_baked(*a64), TK.bitap_scan_baked_plain(*a64))
-    Kk = eng_k.tables.k
-    a_k = eng_k._args() + (ph_k.halo_a, ph_k.body, 0, len(hay_k), False)
     g1, g2 = (lambda: TK.generic_plan), (lambda: TK.baked_plan)
     g5, g6 = (lambda: FK.generic_plan), (lambda: FK.baked_plan)
     g3, g4 = (lambda: SK.flags_plan), (lambda: SK.gathered_plan)
@@ -1172,11 +1477,6 @@ def main() -> int:
                          lambda: TK.bitap_scan_generic(*a_np),
                          lambda: TK.bitap_scan_generic_plain(*a_np),
                          g1),
-        "G1 K=229": row(f"G1 count 1 MiB, K={Kk} (spill path)", Kk,
-                        len(hay_k), ph_k.tiles * 1024, 0,
-                        lambda: TK.bitap_scan_generic(*a_k),
-                        lambda: TK.bitap_scan_generic_plain(*a_k),
-                        g1),
         "G2": row(f"G2 count 2 MiB, K={K3}", K3, len(hay2), ph2.tiles * 1024,
                   0, lambda: TK.bitap_scan_baked(*a2(False)),
                   lambda: TK.bitap_scan_baked_plain(*a2(False)),
@@ -1240,6 +1540,7 @@ def main() -> int:
                           lambda: FK.fp_bitmap_plain(*fn, (0, len(hay_n))),
                           g5, popc=False),
     }
+    rows.update(time_limb_rows(TK, layouts, sm_hz, card, with_plain=True))
     report["timings"] = rows
     report["launches"] = launches
 
@@ -1250,23 +1551,17 @@ def main() -> int:
     def e2e(name, n, fn):
         ts = [host_ms(fn) for _ in range(RUNS)]
         ms = float(np.median(ts))
-        call_ms, busy_ms, by = trace(fn)
+        call_ms, busy_ms, by, span = trace(fn)
         idle = None if busy_ms is None else 1 - busy_ms / call_ms
         idle_med = None if busy_ms is None else 1 - busy_ms / ms
-        top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
         log(f"[e2e] {name}: {ms:.3f} ms ({n / ms / 1e6:.3f} GB/s of "
             f"haystack) | {card}")
-        log(f"[trace] {name}: call {call_ms:.3f} ms, device busy "
-            + ("not measured (no device activity in the trace)"
-               if busy_ms is None else
-               f"{busy_ms:.3f} ms, idle {100 * idle:.1f}% of the traced "
-               f"call, {100 * idle_med:.1f}% of the median call; "
-               + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top)))
+        log_trace(name, call_ms, busy_ms, by, span, idle_med)
         return dict(name=name, bytes=n, ms=ms, runs_ms=ts,
                     gbps=n / ms / 1e6, traced_call_ms=call_ms,
                     device_busy_ms=busy_ms, device_idle_share=idle,
                     device_idle_share_of_median=idle_med,
-                    device_ms_by_name=by)
+                    device_ms_by_name=by, device_span_ms=span)
 
     report["end_to_end"] = [
         e2e("count_matches 64 MiB (staged: G3, G4)", len(hay64),
@@ -1297,9 +1592,50 @@ def main() -> int:
             "side G2)", len(hay_s), lambda: ac_s.count_matches(hay_s)),
         e2e("no-pad set count_matches 4 MiB, engine='cascade' (G5)",
             len(hay_n), lambda: ac_n.count_matches(hay_n)),
+        e2e("128 words (K=103) count_matches 64 MiB (G2 limb groups)",
+            len(hay_w), lambda: ac_k103.count_matches(hay_w)),
+        # Last: the trace of the call after it was seen to miss its
+        # upload copy.
         e2e("dict1k count_matches 64 MiB, engine='dfa-scan' (device walk)",
             len(hay_d), lambda: ac_w.count_matches(hay_d)),
     ]
+
+    # The 64 MiB count of the 128-word set (K = 103), RUNS times, each run
+    # beside a whole count_matches call: the host pack (BitapEngine._pack,
+    # padded with the pad byte), the pageable upload, the stream-major
+    # layout and G2 with the sum, each ended by a synchronise.
+    wparts = {k: [] for k in ("count_matches", "sum_of_parts", "pack",
+                              "upload", "layout", "G2_and_sum")}
+    L_w, tiles_w = eng_k103._layout(len(hay_w))
+    for _ in range(RUNS):
+        wparts["count_matches"].append(
+            host_ms(lambda: ac_k103.count_matches(hay_w)))
+        t0 = time.perf_counter()
+        x32 = torch.from_numpy(eng_k103._pack(
+            hay_w, L_w, tiles_w, pad=eng_k103.tables.pad_byte))
+        t1 = time.perf_counter()
+        xd = x32.to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        halo_w, body_w = TB._to_stream_major(xd, L_w, tiles_w,
+                                             eng_k103.halo)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        cnt, _ = TK.bitap_scan_baked(*eng_k103._args(),
+                                     eng_k103.tables.end_limbs, halo_w,
+                                     body_w, False)
+        assert int(cnt.sum()) == n_k103
+        t4 = time.perf_counter()
+        for k, a, b in (("pack", t0, t1), ("upload", t1, t2),
+                        ("layout", t2, t3), ("G2_and_sum", t3, t4),
+                        ("sum_of_parts", t0, t4)):
+            wparts[k].append((b - a) * 1e3)
+        del x32, xd, halo_w, body_w
+    wmed = {k: float(np.median(v)) for k, v in wparts.items()}
+    log("[e2e parts] 128 words (K=103) count_matches 64 MiB, medians of "
+        f"{RUNS}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in wmed.items())
+        + f" | {card}")
+    report["k103_count_parts"] = dict(runs_ms=wparts, median_ms=wmed)
 
     # The 64 MiB staged count's steps, RUNS times, each run beside a whole
     # count_matches call: the host pack, the pageable upload (its rows are

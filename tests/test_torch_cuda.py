@@ -22,6 +22,8 @@ from ahocorasick_tpu_torch.ops import fingerprint as TF
 from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
 from ahocorasick_tpu_torch.ops import staged as TS
 from ahocorasick_tpu_torch.ops import staged_kernels as SK
+from test_torch_limb_sets import SETS as LIMB_GROUP_SETS
+from test_torch_limb_sets import limb_sets
 
 pytestmark = pytest.mark.cuda
 
@@ -255,7 +257,7 @@ def test_one_tile_most_segments(dev, extract):
     args = eng._args()[:4] + (eng.tables.end_limbs, ph.halo_a, ph.body,
                               extract)
     _same(TK.bitap_scan_baked(*args), TK.bitap_scan_baked_plain(*args))
-    threads, P, Ls = TK.baked_plan
+    threads, P, Ls, _ = TK.baked_plan
     assert (P, Ls) == (64, 32) and threads == 64 * 1024 and len(hay) % Ls
 
 
@@ -282,7 +284,7 @@ def test_window_ends_mid_segment(dev, extract):
     n0, n = 5, len(hay) - 11
     args = eng._args() + (ph.halo_a, ph.body, n0, n, extract)
     _same(TK.bitap_scan_generic(*args), TK.bitap_scan_generic_plain(*args))
-    _, P, Ls = TK.generic_plan
+    _, P, Ls, _ = TK.generic_plan
     assert P > 1 and (n % ph.L) % Ls and n0 % Ls
     fp = TF.FingerprintEngine(NAMES, False, dev)
     fph = fp.prepare(hay)
@@ -294,8 +296,9 @@ def test_window_ends_mid_segment(dev, extract):
 
 
 def test_spill_path_with_segments(dev):
-    """K = 229 limbs (the global-scratch path) at 1 MiB, P > 1: counts and
-    end words equal the plain version."""
+    """K = 229 limbs (once the global-scratch path, now limb groups of 8
+    lanes) at 1 MiB, P > 1: counts and end words equal the plain
+    version."""
     pats = SETS["k229"]
     eng = TB.BitapEngine(pats, False, dev)
     assert eng.tables.k == 229
@@ -306,6 +309,128 @@ def test_spill_path_with_segments(dev):
         _same(TK.bitap_scan_generic(*args),
               TK.bitap_scan_generic_plain(*args))
         assert TK.generic_plan[1] > 1
+
+
+# ---------------------------------------------------------------------------
+# Limb groups: G1/G2 beyond 64 limbs
+# ---------------------------------------------------------------------------
+# K of each set: every group size (4, 8, 16 lanes of 32 limbs, 32 of 64).
+LIMB_SETS = limb_sets()
+
+
+def _limb_case(dev, pats, args, n, extract, kernel, seed):
+    """Run G1 (window [7, n - 5)) or G2 through the wrapper and its plain
+    version on one haystack; returns the plan the wrapper recorded."""
+    eng = TB.BitapEngine(pats, False, dev)
+    hay = _hay(n, seed, pats)
+    ph = eng.prepare(hay, baked=False)
+    lo, hi, sm, em = args if args is not None else eng._args()
+    if kernel == "G1":
+        a = (lo, hi, sm, em, ph.halo_a, ph.body, 7, n - 5, extract)
+        _same(TK.bitap_scan_generic(*a), TK.bitap_scan_generic_plain(*a))
+        plan = TK.generic_plan
+    else:
+        ends = [k for k in range(lo.shape[0]) if int(em[k]) != 0]
+        a = (lo, hi, sm, em, ends, ph.halo_a, ph.body, extract)
+        _same(TK.bitap_scan_baked(*a), TK.bitap_scan_baked_plain(*a))
+        plan = TK.baked_plan
+    threads, P, Ls, G = plan
+    K = lo.shape[0]
+    assert G == TK.limb_group(K)[0] > 1
+    assert threads == ph.tiles * 1024 * P * G
+    if kernel == "G1" and P > 1:
+        assert ((n - 5) % ph.L) % Ls  # the window ends inside a segment
+    return plan
+
+
+@pytest.mark.parametrize("extract", [False, True])
+@pytest.mark.parametrize("kernel", ["G1", "G2"])
+@pytest.mark.parametrize("K", list(LIMB_SETS))
+def test_limb_groups_equal_plain(dev, K, kernel, extract):
+    """G1 and G2, count and extract, at K = 65 .. 1,121 against their plain
+    versions; extraction over 64 KiB (its words are 4K bytes per byte),
+    counts over 1 MiB, where the plan has P > 1."""
+    pats = LIMB_SETS[K]
+    assert TB.BitapTables(pats, False).k == K
+    n = (64 << 10) if extract else (1 << 20)
+    _, P, _, _ = _limb_case(dev, pats, None, n, extract, kernel, K)
+    assert P > 1
+
+
+@pytest.mark.parametrize("kernel", ["G1", "G2"])
+def test_limb_groups_tables_in_device_memory(dev, kernel):
+    """Past 1,728 limbs the group's tables do not fit in shared memory and
+    the lanes read them from device memory, padded to whole slices: the
+    tables of the 229-limb set repeated 8 times (K = 1,832), and 22 chains
+    of 65 bytes that cross lane boundaries repeated 31 times (K = 2,046).
+    Unpadded tables are refused."""
+    for pats, reps, n in ((SETS["k229"], 8, 64 << 10),
+                          (LIMB_GROUP_SETS["lane_carry"], 31, 128 << 10)):
+        eng = TB.BitapEngine(pats, False, dev)
+        lo, hi, sm, em = (t.repeat(reps, *([1] * (t.dim() - 1)))
+                          for t in eng._args())
+        K = lo.shape[0]
+        assert not TK.group_tables_shared(K, *TK.limb_group(K))
+        with pytest.raises(ValueError, match="allocated"):
+            _limb_case(dev, pats, (lo, hi, sm, em), n, False, kernel, reps)
+        args = (*TK.padded_tables(lo, hi), sm, em)
+        for extract in (False, True):
+            _limb_case(dev, pats, args, n, extract, kernel, reps)
+
+
+@pytest.mark.parametrize("kernel", ["G1", "G2"])
+@pytest.mark.parametrize("K", [461, 1121])
+def test_limb_groups_in_waves(dev, K, kernel):
+    """One segment per stream in several waves: S * G past the card's
+    resident thread slots (as the 64 MiB counts at K = 229 reach), counts
+    of 128-byte streams against the plain version, G1 with a window
+    ending inside the last stream."""
+    pats = LIMB_SETS[K]
+    eng = TB.BitapEngine(pats, False, dev)
+    G, KR = TK.limb_group(K)
+    tiles = TK.resident_threads(dev) // (1024 * G) + 1
+    L = 128
+    n = tiles * 1024 * L - 9
+    hay = _hay(n, K, pats)
+    pad = (eng.tables.pad_byte or 0) if kernel == "G2" else 0
+    x32 = torch.from_numpy(eng._pack(hay, L, tiles, pad=pad))
+    halo, body = TB._to_stream_major(x32.to(dev), L, tiles, eng.halo)
+    assert TK.scan_plan(L, eng.halo, tiles * 1024, K,
+                        TK.resident_threads(dev))[:3] == (1, L, G)
+    lo, hi, sm, em = eng._args()
+    if kernel == "G1":
+        a = (lo, hi, sm, em, halo, body, 0, n, False)
+        _same(TK.bitap_scan_generic(*a), TK.bitap_scan_generic_plain(*a))
+        plan = TK.generic_plan
+    else:
+        a = (lo, hi, sm, em, eng.tables.end_limbs, halo, body, False)
+        _same(TK.bitap_scan_baked(*a), TK.bitap_scan_baked_plain(*a))
+        plan = TK.baked_plan
+    assert plan == (tiles * 1024 * G, 1, L, G)
+    assert plan[0] > TK.resident_threads(dev)
+
+
+def test_limb_group_carry_between_lanes(dev):
+    """22 chains of 65 bytes (three limbs each): the chain on limbs 30-32
+    carries from lane 0 into lane 1 of its group, G1 and G2."""
+    pats = LIMB_GROUP_SETS["lane_carry"]
+    for kernel in ("G1", "G2"):
+        for extract in (False, True):
+            _limb_case(dev, pats, None, 1 << 20, extract, kernel, 5)
+
+
+def test_facade_count_at_103_limbs(dev):
+    """The count a user's call takes with the 128-word set (K = 103, pad
+    byte 0, no staged route): one G2 launch at 2 MiB, one G1 launch at
+    600 KB, each equal to the native walk's count."""
+    pats = LIMB_SETS[103]
+    ac = AhoCorasick(pats, device=dev)
+    truth = AhoCorasick(pats, device="cpu", engine="oracle")
+    for n, g1, g2 in ((2 << 20, 0, 1), (600_000, 1, 0)):
+        hay = _hay(n, 14, pats)
+        TK.reset_counts()
+        assert ac.count_matches(hay) == truth.count_matches(hay)
+        assert (TK.generic_launches, TK.baked_launches) == (g1, g2)
 
 
 @pytest.mark.parametrize("extract", [False, True])

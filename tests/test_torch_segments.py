@@ -35,6 +35,7 @@ from ahocorasick_tpu_torch.ops.bitap_kernels import (
     bitap_scan_generic_plain,
     or_limbs,
     popcount32,
+    scan_plan,
     segment_plan,
     to_i32,
     u32,
@@ -158,7 +159,7 @@ PLAN_SHAPES = [
     (2048, 8, 32768, 32, 8),      # 64 MiB dict1k
     (128, 32, 5120, 4, 3),        # 594,915 B
     (2048, 32, 4096, 4, 3),       # an 8 MiB extraction chunk
-    (1024, 4, 1024, 4, 229),      # K = 229 at 1 MiB: the spill path
+    (1024, 4, 1024, 4, 229),      # K = 229: the spill cap (G3/G4 only)
     (512, 4, 131072, 4, 1),       # beyond the resident slots already
     (64, 32, 1024, 4, 3),         # L = 2H: two segments of H
     (32, 32, 1024, 32, 1),        # L = H: no room
@@ -187,7 +188,11 @@ def test_segment_plan_main_path_shapes():
     assert plan(2048, 8, 32768, 32, 8) == (8, 256)
     assert plan(128, 32, 5120, 4, 3) == (4, 32)
     assert plan(32, 32, 1024, 4, 3) == (1, 32)
-    assert plan(1024, 4, 1024, 4, 229) == (32, 32)
+    # K = 229 at 1 MiB: G1 takes limb groups of 8 lanes (scan_plan, no
+    # scratch); G4 at K = 107 over 16,384 lanes keeps its scratch within
+    # MAX_SPILL_BYTES with 4 segments where the slots allow 16.
+    assert scan_plan(1024, 4, 1024, 229, RESIDENT_THREADS) == (32, 32, 8, 32)
+    assert plan(512, 32, 16384, 32, 107) == (4, 128)
     # A card with fewer resident slots gets fewer segments.
     assert plan(2048, 8, 32768, 32, 8) > segment_plan(2048, 8, 32768, 32, 8,
                                                       RESIDENT_THREADS // 2)
@@ -245,7 +250,7 @@ def test_segmented_scan_equals_whole_stream(name, extract):
     """The plan's P: counts and end words equal the whole-stream scan."""
     eng, ph, window, limbs = _scan_args(name)
     L, H, S = _shape(ph)
-    P, Ls = plan(L, H, S, 4, eng.tables.k)
+    P, Ls = scan_plan(L, H, S, eng.tables.k, RESIDENT_THREADS)[:2]
     assert P > 1
     if name == "names_one_tile_min_ls":
         assert ph.tiles == 1 and Ls == H
