@@ -137,7 +137,7 @@ __global__ void __launch_bounds__(kSegThreads) scan_kernel(Params p) {
   const int s = g.s;
 
   Limbs<KR> st;
-  init_padded<KR>(st, p.sm, p.em, nullptr, 0, 0, K);
+  init_padded<KR>(st, p.sm, p.em, K);
   const SegmentRows rows{p.halo, p.body, static_cast<size_t>(p.S), p.Hw,
                          g.w0, g.j == 0};
   // Stream 0's halo wraps around to the end of the buffer: no history.
@@ -153,12 +153,12 @@ __global__ void __launch_bounds__(kSegThreads) scan_kernel(Params p) {
     if (i < p.Hw) {  // warm-up: no hits counted
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        step_padded<KR>(st, LO, HI, K, (word >> (8 * jj)) & 255u,
-                 [](int, uint32_t) {});
+        step_padded<KR>(st, LO, HI, (word >> (8 * jj)) & 255u,
+                        [](int, uint32_t) {});
       }
       return;
     }
-    if (reset_at_body && i == p.Hw) reset<KR>(st, K);
+    if (reset_at_body && i == p.Hw) reset<KR>(st);
     const long long w = g.w0 + i - p.Hw;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
@@ -172,16 +172,16 @@ __global__ void __launch_bounds__(kSegThreads) scan_kernel(Params p) {
         wrow = p.words + ((tile * L + t) * p.kdim) * kLanes + lane;
       }
       int slot = 0;
-      step_padded<KR>(st, LO, HI, K, (word >> (8 * jj)) & 255u,
+      step_padded<KR>(st, LO, HI, (word >> (8 * jj)) & 255u,
                [&](int k, uint32_t nm) {
-                 uint32_t h = nm & st.end(k);
+                 uint32_t h = nm & st.em[k];
                  if constexpr (!BAKED) {
                    h = ok ? h : 0u;
                  }
                  cnt += __popc(h);
                  if constexpr (EXTRACT) {
                    if constexpr (BAKED) {
-                     if (st.end(k) != 0u) {
+                     if (st.em[k] != 0u) {
                        wrow[static_cast<size_t>(slot) * kLanes] =
                            static_cast<int32_t>(h);
                        ++slot;
@@ -200,15 +200,6 @@ __global__ void __launch_bounds__(kSegThreads) scan_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // Limb groups (K > 64)
 // ---------------------------------------------------------------------------
-constexpr int kGroupThreads = 256;  // threads per block
-constexpr unsigned kWarp = 0xFFFFFFFFu;
-
-// Words of one lane's slice of lo (or hi) in shared memory: KR limbs of 16
-// words, padded so that the G slices of a group start 32 / G banks apart.
-__host__ __device__ constexpr int group_stride(int KR, int G) {
-  return 16 * KR + 32 / G;
-}
-
 // Dynamic shared memory of a limb-group block: lo and hi, one slice per
 // lane that holds a live limb (if the tables are in shared memory), then
 // the ring.
@@ -219,32 +210,6 @@ inline size_t group_shmem_bytes(int K, int KR, int G, bool shared_tables) {
                     : 0;
   return (tables + static_cast<size_t>(kRing) * kGroupThreads) *
          sizeof(uint32_t);
-}
-
-// The (segment, stream, lane of the group) of this thread. A warp holds
-// 32 / G consecutive streams of one segment, each on G consecutive lanes;
-// the segments of a run of streams sit in neighbouring warps, as in
-// segment_of.
-struct GroupSegment {
-  int s;   // stream
-  int j;   // segment
-  int g;   // lane in the group: limbs [g*KR, (g+1)*KR)
-  int w0;  // first body word of the segment
-  int nw;  // body words per segment, Wb / P
-};
-
-__device__ __forceinline__ bool group_of(int S, int P, int G, int Wb,
-                                         GroupSegment& q) {
-  const int t = blockIdx.x * kGroupThreads + threadIdx.x;
-  if (t >= S * P * G) return false;  // whole warps: S is a multiple of 1024
-  const int warp = t >> 5;
-  const int lane = t & 31;
-  q.j = warp % P;
-  q.s = (warp / P) * (32 / G) + lane / G;
-  q.g = lane & (G - 1);
-  q.nw = Wb / P;
-  q.w0 = q.j * q.nw;
-  return true;
 }
 
 template <int KR, bool BAKED, bool EXTRACT, bool SHARED_TABLES>
@@ -258,13 +223,7 @@ __global__ void __launch_bounds__(kGroupThreads) group_kernel(Params p) {
   const uint32_t* HI = p.hi;
   uint32_t* ring = smem;
   if constexpr (SHARED_TABLES) {
-    for (int i = threadIdx.x; i < live * 16 * KR; i += kGroupThreads) {
-      const int at = i / (16 * KR) * stride + i % (16 * KR);
-      const bool on = i < 16 * K;
-      smem[at] = on ? p.lo[i] : 0u;
-      smem[live * stride + at] = on ? p.hi[i] : 0u;
-    }
-    __syncthreads();
+    load_group_tables<KR>(p.lo, p.hi, K, stride, smem);
     LO = smem;
     HI = smem + live * stride;
     ring = smem + 2 * live * stride;
@@ -278,32 +237,18 @@ __global__ void __launch_bounds__(kGroupThreads) group_kernel(Params p) {
   HI += (nlive > 0 ? q.g : 0) * stride;
 
   Limbs<KR> st;
-#pragma unroll
-  for (int k = 0; k < KR; ++k) {
-    st.m[k] = 0u;
-    st.sm[k] = k < nlive ? p.sm[k0 + k] : 0u;
-    st.em[k] = k < nlive ? p.em[k0 + k] : 0u;
-  }
+  init_padded<KR>(st, p.sm, p.em, K, k0);
   // G2's word slot of this lane's first end-bearing limb: the end-bearing
-  // limbs of the lanes below it (an inclusive scan over the group).
+  // limbs of the lanes below it.
   int slot0 = 0;
   if constexpr (BAKED && EXTRACT) {
     int mine = 0;
 #pragma unroll
     for (int k = 0; k < KR; ++k) mine += st.em[k] != 0u ? 1 : 0;
-    int below = mine;
-    for (int d = 1; d < G; d <<= 1) {
-      const int v = __shfl_up_sync(kWarp, below, d, G);
-      below += q.g >= d ? v : 0;
-    }
-    slot0 = below - mine;
+    slot0 = group_sum_below(mine, q.g, G);
   }
-  // One shuffle per byte: the old top limb of the lane below (0 for the
-  // group's first lane), before this lane's limbs change.
-  auto carry = [&]() {
-    const uint32_t c = __shfl_up_sync(kWarp, st.m[KR - 1], 1, G);
-    return q.g == 0 ? 0u : c;
-  };
+  // One shuffle per byte, before this lane's limbs change.
+  auto carry = [&]() { return group_carry<KR>(st, q.g, G); };
   const SegmentRows rows{p.halo, p.body, static_cast<size_t>(p.S), p.Hw,
                          q.w0, q.j == 0};
   // Stream 0's halo wraps around to the end of the buffer: no history.
@@ -327,7 +272,7 @@ __global__ void __launch_bounds__(kGroupThreads) group_kernel(Params p) {
       }
       return;
     }
-    if (reset_at_body && i == p.Hw) reset<KR>(st, K);
+    if (reset_at_body && i == p.Hw) reset<KR>(st);
     const long long w = q.w0 + i - p.Hw;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
@@ -363,9 +308,7 @@ __global__ void __launch_bounds__(kGroupThreads) group_kernel(Params p) {
           carry());
     }
   });
-  for (int d = G >> 1; d > 0; d >>= 1) {
-    cnt += __shfl_xor_sync(kWarp, cnt, d, G);
-  }
+  cnt = group_sum(cnt, G);
   if (q.g == 0 && cnt != 0) atomicAdd(p.counts + s, cnt);
 }
 
@@ -373,21 +316,9 @@ template <int KR, bool BAKED, bool EXTRACT, bool SHARED_TABLES>
 cudaError_t launch_group(const Params& p, cudaStream_t stream) {
   const size_t bytes = group_shmem_bytes(p.K, KR, p.G, SHARED_TABLES);
   auto kernel = group_kernel<KR, BAKED, EXTRACT, SHARED_TABLES>;
-  // Beyond the default 48 KiB a block must opt in. The size opted into is
-  // remembered per kernel and device, so that launches captured into a
-  // graph after a first launch make no attribute call.
-  static int opted[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static int opted[kMaxDevices] = {};
+  const cudaError_t e = opt_in_shared(kernel, bytes, opted);
   if (e != cudaSuccess) return e;
-  if (bytes > (48u << 10) &&
-      (dev >= 64 || opted[dev] < static_cast<int>(bytes))) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    if (dev < 64) opted[dev] = static_cast<int>(bytes);
-  }
   const long long threads = static_cast<long long>(p.S) * p.P * p.G;
   kernel<<<static_cast<int>((threads + kGroupThreads - 1) / kGroupThreads),
            kGroupThreads, bytes, stream>>>(p);
@@ -400,12 +331,10 @@ template <bool BAKED, bool EXTRACT>
 cudaError_t launch(const Params& p, int KR, bool shared_tables,
                    cudaStream_t stream) {
   if (p.G == 1) {
-    if (p.K > 64) return cudaErrorInvalidValue;
-    SHIFT_AND_FOR_BUCKET(p.K, if constexpr (KR > 0) {
-      scan_kernel<KR, BAKED, EXTRACT>
-          <<<seg_blocks_for(p.S, p.P), kSegThreads, seg_shmem_bytes(KR),
-             stream>>>(p);
-    });
+    SHIFT_AND_FOR_BUCKET(
+        p.K, scan_kernel<KR, BAKED, EXTRACT>
+                 <<<seg_blocks_for(p.S, p.P), kSegThreads,
+                    seg_shmem_bytes(KR), stream>>>(p));
     return cudaGetLastError();
   }
   if (p.G > 32 || (p.G & (p.G - 1)) != 0 || p.G * KR < p.K) {

@@ -65,9 +65,7 @@ struct Params {
   const uint32_t* body;   // [Wb, S] words, stream-major
   int32_t* counts;        // [S], zeroed by the caller (segments add)
   int32_t* bitmap;        // [tiles, L/32, 1024]
-  uint32_t* state;        // [K, state_row] scratch (K > 64) or null
-  int state_row;          // words per limb row of state, >= S*P
-  int K;
+  int K;                  // <= 64
   int Hw;
   int Wb;
   int S;
@@ -88,7 +86,7 @@ __global__ void __launch_bounds__(kSegThreads) bitmap_kernel(Params p) {
   const int s = g.s;
 
   Limbs<KR> st;
-  init_padded<KR>(st, p.sm, p.em, p.state, g.t, p.state_row, K);
+  init_padded<KR>(st, p.sm, p.em, K);
   const SegmentRows rows{p.halo, p.body, static_cast<size_t>(p.S), p.Hw,
                          g.w0, g.j == 0};
   // Stream 0's halo wraps around to the end of the buffer: no history.
@@ -107,19 +105,19 @@ __global__ void __launch_bounds__(kSegThreads) bitmap_kernel(Params p) {
     if (i < p.Hw) {  // warm-up: no hits
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        step_padded<KR>(st, LO, HI, K, (word >> (8 * jj)) & 255u,
-                 [](int, uint32_t) {});
+        step_padded<KR>(st, LO, HI, (word >> (8 * jj)) & 255u,
+                        [](int, uint32_t) {});
       }
       return;
     }
-    if (reset_at_body && i == p.Hw) reset<KR>(st, K);
+    if (reset_at_body && i == p.Hw) reset<KR>(st);
     // The segment starts on a multiple of 8 words: bitmap words are whole.
     const int w = g.w0 + i - p.Hw;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       uint32_t any = 0u;
-      step_padded<KR>(st, LO, HI, K, (word >> (8 * jj)) & 255u,
-               [&](int k, uint32_t nm) { any |= nm & st.end(k); });
+      step_padded<KR>(st, LO, HI, (word >> (8 * jj)) & 255u,
+                      [&](int k, uint32_t nm) { any |= nm & st.em[k]; });
       uint32_t hit = any != 0u ? 1u : 0u;
       if constexpr (MASKED) {
         const long long pos = pos0 + 4LL * w + jj;
@@ -142,12 +140,11 @@ extern "C" {
 
 // G5 (masked != 0) and G6. counts: [S] int32, zeroed; bitmap:
 // [tiles, L/32, 1024] int32, L = 4 * Wb a multiple of 32; P segments per
-// stream, each a multiple of 32 bytes; state: [K, state_row] for K > 64.
+// stream, each a multiple of 32 bytes; K <= 64 (else cudaErrorInvalidValue).
 int fp_bitmap(const void* lo, const void* hi, const void* sm, const void* em,
               int K, const void* halo, int Hw, const void* body, int Wb,
               int S, int P, int masked, long long n0, long long n,
-              void* counts, void* bitmap, void* state, int state_row,
-              void* stream) {
+              void* counts, void* bitmap, void* stream) {
   Params p{};
   p.lo = static_cast<const uint32_t*>(lo);
   p.hi = static_cast<const uint32_t*>(hi);
@@ -157,8 +154,6 @@ int fp_bitmap(const void* lo, const void* hi, const void* sm, const void* em,
   p.body = static_cast<const uint32_t*>(body);
   p.counts = static_cast<int32_t*>(counts);
   p.bitmap = static_cast<int32_t*>(bitmap);
-  p.state = static_cast<uint32_t*>(state);
-  p.state_row = state_row;
   p.K = K;
   p.Hw = Hw;
   p.Wb = Wb;

@@ -8,19 +8,17 @@
 // live in registers (template buckets KR over K, fully unrolled limb loop)
 // and lo/hi sit in shared memory: 16 consecutive words per limb fall in 16
 // distinct banks and equal addresses broadcast, so the per-byte lookups
-// are free of bank conflicts. Beyond 64 limbs G1/G2 (bitap.cu) split a
-// stream's limbs over a group of lanes, each holding KR of them in
-// registers, and step_rows takes the carry into a lane's first limb from
-// the lane below. G3/G4 (staged.cu) still keep the state of K > 64 limbs
-// in a global scratch (KR == 0), one row per limb coalesced across
-// threads, and read the tables through the read-only cache; Limbs<0> and
-// the scratch's wrappers (spill_state, segment_state in
-// ops/bitap_kernels.py) stay only for them.
+// are free of bank conflicts. Beyond 64 limbs (G1-G4; G5/G6 hold at most
+// 64) a stream's limbs are split over a limb group of G lanes of a warp,
+// each holding KR of them in registers (the group helpers below), and
+// step_rows takes the carry into a lane's first limb from the lane below.
+// No kernel keeps limb state in device memory.
 //
 // Every kernel runs one thread per (segment, stream) (kSegThreads per
-// block; the limb groups of bitap.cu one per (segment, stream, lane of the
-// group)). Each L-byte stream is cut into P segments of Ls bytes
-// (segment_plan in ops/bitap_kernels.py); a segment warms up over the H
+// block; the limb groups one per (segment, stream, lane of the group),
+// kGroupThreads per block). Each L-byte stream is cut into P segments of
+// Ls bytes (segment_plan and scan_plan in ops/bitap_kernels.py); a
+// segment warms up over the H
 // bytes before it, which is exact because a state bit at chain offset i
 // depends only on the last i + 1 bytes, whatever the state before them,
 // and i <= max_len - 1 <= H: the warm-up plus the byte itself cover them.
@@ -31,10 +29,11 @@
 //   - stream-major words, word[w][s], as the JAX package lays them out
 //     (G1/G2, G5/G6: walk_rows). A warp's 32 loads of one word row are one
 //     coalesced 128-byte transaction.
-//   - the uploaded words as they lie, row s = stream s (G3/G4: walk_run).
-//     A segment's walk, warm-up included, is then one contiguous run of
-//     words, copied 32 bytes (one sector) per ring slot, so each sector
-//     is fetched once although a warp's 32 runs lie L bytes apart.
+//   - the uploaded words as they lie, row s = stream s (G3/G4: walk_run,
+//     and walk_run_group for their limb groups). A segment's walk, warm-up
+//     included, is then one contiguous run of words, copied 32 bytes (one
+//     sector) per ring slot, so each sector is fetched once although a
+//     warp's 32 runs lie L bytes apart.
 // What bounds these kernels is instruction issue (bitap.cu, staged.cu,
 // fingerprint.cu).
 
@@ -49,39 +48,12 @@ namespace shift_and {
 
 constexpr int kLanes = 1024;   // streams per [8, 128] tile
 
-// Limb state and per-limb constants: registers for KR > 0 (K <= KR),
-// global memory for KR == 0 (staged.cu's K > 64 path).
+// Limb state and per-limb constants of one thread, in registers.
 template <int KR>
 struct Limbs {
-  uint32_t m[KR > 0 ? KR : 1];
-  uint32_t sm[KR > 0 ? KR : 1];
-  uint32_t em[KR > 0 ? KR : 1];
-  uint32_t* g;
-  const uint32_t* gsm;
-  const uint32_t* gem;
-  int S;
-
-  __device__ __forceinline__ uint32_t& at(int k) {
-    if constexpr (KR > 0) {
-      return m[k];
-    } else {
-      return g[static_cast<size_t>(k) * S];
-    }
-  }
-  __device__ __forceinline__ uint32_t start(int k) const {
-    if constexpr (KR > 0) {
-      return sm[k];
-    } else {
-      return __ldg(gsm + k);
-    }
-  }
-  __device__ __forceinline__ uint32_t end(int k) const {
-    if constexpr (KR > 0) {
-      return em[k];
-    } else {
-      return __ldg(gem + k);
-    }
-  }
+  uint32_t m[KR];
+  uint32_t sm[KR];
+  uint32_t em[KR];
 };
 
 // ---------------------------------------------------------------------------
@@ -95,8 +67,7 @@ constexpr int kSegThreads = 128;  // threads per block
 // 128-byte transaction and its stores of per-position outputs
 // ([.., t, .., lane], lane-fastest) coalesce; the segments of a stream
 // group sit in neighbouring warps, so segment j's warm-up words (segment
-// j-1's last words) are read close in time. `t` indexes the thread's limb
-// scratch on the spill path.
+// j-1's last words) are read close in time.
 struct Segment {
   int t;   // thread, 0 .. S*P-1
   int s;   // stream
@@ -129,62 +100,44 @@ inline int seg_blocks_for(int S, int P) {
 // state.
 // ---------------------------------------------------------------------------
 
-// The nybble tables, for KR > 0 copied into the block's shared memory
-// `tab` and padded with zeros to KR limbs: lo at tab, hi at tab + 16 * KR.
-// Every thread of the block must call this before any of them returns.
+// The nybble tables, copied into the block's shared memory `tab` and
+// padded with zeros to KR limbs: lo at tab, hi at tab + 16 * KR. Every
+// thread of the block must call this before any of them returns.
 template <int KR>
 __device__ __forceinline__ void load_tables_padded(const uint32_t* lo,
                                                    const uint32_t* hi, int K,
                                                    uint32_t* tab,
                                                    const uint32_t*& LO,
                                                    const uint32_t*& HI) {
-  LO = lo;
-  HI = hi;
-  if constexpr (KR > 0) {
-    for (int i = threadIdx.x; i < KR * 16; i += kSegThreads) {
-      const bool live = i < K * 16;
-      tab[i] = live ? lo[i] : 0u;
-      tab[KR * 16 + i] = live ? hi[i] : 0u;
-    }
-    __syncthreads();
-    LO = tab;
-    HI = tab + KR * 16;
+  for (int i = threadIdx.x; i < KR * 16; i += kSegThreads) {
+    const bool live = i < K * 16;
+    tab[i] = live ? lo[i] : 0u;
+    tab[KR * 16 + i] = live ? hi[i] : 0u;
   }
+  __syncthreads();
+  LO = tab;
+  HI = tab + KR * 16;
 }
 
-// Zero state (thread t's column of the scratch `state`, rows of `row`
-// words, for KR == 0); for KR > 0 the start/end masks into registers, those
-// of limbs K..KR-1 zero.
+// Zero state and the start/end masks of limbs [k0, k0 + KR) into
+// registers, those at or past limb K zero.
 template <int KR>
 __device__ __forceinline__ void init_padded(Limbs<KR>& st,
                                             const uint32_t* sm,
-                                            const uint32_t* em,
-                                            uint32_t* state, int t, int row,
-                                            int K) {
-  st.g = state + t;
-  st.gsm = sm;
-  st.gem = em;
-  st.S = row;
-  if constexpr (KR > 0) {
+                                            const uint32_t* em, int K,
+                                            int k0 = 0) {
 #pragma unroll
-    for (int k = 0; k < KR; ++k) {
-      st.m[k] = 0u;
-      st.sm[k] = k < K ? sm[k] : 0u;
-      st.em[k] = k < K ? em[k] : 0u;
-    }
-  } else {
-    for (int k = 0; k < K; ++k) st.at(k) = 0u;
+  for (int k = 0; k < KR; ++k) {
+    st.m[k] = 0u;
+    st.sm[k] = k0 + k < K ? sm[k0 + k] : 0u;
+    st.em[k] = k0 + k < K ? em[k0 + k] : 0u;
   }
 }
 
 template <int KR>
-__device__ __forceinline__ void reset(Limbs<KR>& st, int K) {
-  if constexpr (KR > 0) {
+__device__ __forceinline__ void reset(Limbs<KR>& st) {
 #pragma unroll
-    for (int k = 0; k < KR; ++k) st.m[k] = 0u;
-  } else {
-    for (int k = 0; k < K; ++k) st.at(k) = 0u;
-  }
+  for (int k = 0; k < KR; ++k) st.m[k] = 0u;
 }
 
 // Advance the KR register limbs by one byte, given the rows of the byte's
@@ -196,7 +149,6 @@ template <int KR, typename F>
 __device__ __forceinline__ void step_rows(Limbs<KR>& st, const uint32_t* lo,
                                           const uint32_t* hi, F&& on_limb,
                                           uint32_t below = 0u) {
-  static_assert(KR > 0, "register limbs only");
 #pragma unroll
   for (int k = 0; k < KR; ++k) {
     const uint32_t old = st.m[k];
@@ -208,26 +160,12 @@ __device__ __forceinline__ void step_rows(Limbs<KR>& st, const uint32_t* lo,
   }
 }
 
-// Advance limbs [0, KR) (the K limbs of the spill path) by byte b, as
-// step_rows does.
+// Advance limbs [0, KR) by byte b, as step_rows does, the tables at LO/HI.
 template <int KR, typename F>
 __device__ __forceinline__ void step_padded(Limbs<KR>& st, const uint32_t* LO,
-                                            const uint32_t* HI, int K,
-                                            uint32_t b, F&& on_limb) {
-  if constexpr (KR == 0) {
-    uint32_t below = 0u;
-    for (int k = 0; k < K; ++k) {
-      const uint32_t old = st.at(k);
-      const uint32_t nm = (__funnelshift_l(below, old, 1) | st.start(k)) &
-                          __ldg(LO + k * 16 + (b & 15u)) &
-                          __ldg(HI + k * 16 + (b >> 4));
-      below = old;
-      st.at(k) = nm;
-      on_limb(k, nm);
-    }
-  } else {
-    step_rows<KR>(st, LO + (b & 15u), HI + (b >> 4), on_limb);
-  }
+                                            const uint32_t* HI, uint32_t b,
+                                            F&& on_limb) {
+  step_rows<KR>(st, LO + (b & 15u), HI + (b >> 4), on_limb);
 }
 
 // The four bytes of a word, their nybbles split and scaled to byte offsets
@@ -387,11 +325,193 @@ __device__ __forceinline__ void walk_run(const uint32_t* x, long long w0,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Limb groups (K > 64, G1-G4): a stream's K limbs go to G consecutive lanes
+// of one warp, G the least power of two with G * KR >= K (limb_group in
+// ops/bitap_kernels.py), lane g holding limbs [g*KR, (g+1)*KR) in
+// registers. The step reads the OLD state of the limb below, so a lane's
+// carry into its first limb is the old top limb of lane g - 1: one
+// __shfl_up_sync per byte (group_carry), before the lane's limb loop.
+// Lanes whose slice starts at or past limb K get zero start and end masks
+// and read slice 0's tables: nothing they compute is reported, and carries
+// only flow upward, so they disturb no live limb. Every lane of a warp
+// walks the same number of bytes (one segment, the same warm-up), so the
+// shuffles run converged.
+// ---------------------------------------------------------------------------
+constexpr int kGroupThreads = 256;  // threads per block
+constexpr unsigned kWarp = 0xFFFFFFFFu;
+
+// Words of one lane's slice of lo (or hi) in shared memory: KR limbs of 16
+// words, padded so that the G slices of a group start 32 / G banks apart:
+// the G lanes of a stream read the same nybble row of their G slices,
+// which then fall in G different banks (an unpadded stride of 16 * KR
+// words puts them all in one).
+__host__ __device__ constexpr int group_stride(int KR, int G) {
+  return 16 * KR + 32 / G;
+}
+
+// The (segment, stream, lane of the group) of this thread. A warp holds
+// 32 / G consecutive streams of one segment, each on G consecutive lanes;
+// the segments of a run of streams sit in neighbouring warps, as in
+// segment_of.
+struct GroupSegment {
+  int s;   // stream
+  int j;   // segment
+  int g;   // lane in the group: limbs [g*KR, (g+1)*KR)
+  int w0;  // first body word of the segment
+  int nw;  // body words per segment, Wb / P
+};
+
+__device__ __forceinline__ bool group_of(int S, int P, int G, int Wb,
+                                         GroupSegment& q) {
+  const int t = blockIdx.x * kGroupThreads + threadIdx.x;
+  if (t >= S * P * G) return false;  // whole warps: S is a multiple of 1024
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  q.j = warp % P;
+  q.s = (warp / P) * (32 / G) + lane / G;
+  q.g = lane & (G - 1);
+  q.nw = Wb / P;
+  q.w0 = q.j * q.nw;
+  return true;
+}
+
+// Copy the live slices of lo and hi ([K, 16] each) into shared memory:
+// lo's slices at tab, `stride` words apart, hi's after them, limbs past
+// K - 1 zero. Every thread of the block must call this before any of them
+// returns.
+template <int KR>
+__device__ __forceinline__ void load_group_tables(const uint32_t* lo,
+                                                  const uint32_t* hi, int K,
+                                                  int stride, uint32_t* tab) {
+  const int live = (K + KR - 1) / KR;
+  for (int i = threadIdx.x; i < live * 16 * KR; i += kGroupThreads) {
+    const int at = i / (16 * KR) * stride + i % (16 * KR);
+    const bool on = i < 16 * K;
+    tab[at] = on ? lo[i] : 0u;
+    tab[live * stride + at] = on ? hi[i] : 0u;
+  }
+  __syncthreads();
+}
+
+// The carry into lane g's first limb: the old top limb of lane g - 1 (0
+// for the group's first lane). Call before the lane's limbs change.
+template <int KR>
+__device__ __forceinline__ uint32_t group_carry(const Limbs<KR>& st, int g,
+                                                int G) {
+  const uint32_t c = __shfl_up_sync(kWarp, st.m[KR - 1], 1, G);
+  return g == 0 ? 0u : c;
+}
+
+// The sum of v over the lanes of the group below lane g.
+__device__ __forceinline__ int group_sum_below(int v, int g, int G) {
+  int incl = v;
+  for (int d = 1; d < G; d <<= 1) {
+    const int u = __shfl_up_sync(kWarp, incl, d, G);
+    incl += g >= d ? u : 0;
+  }
+  return incl - v;
+}
+
+// The sum (OR) of v over the group, in every lane of it.
+__device__ __forceinline__ int group_sum(int v, int G) {
+  for (int d = G >> 1; d > 0; d >>= 1) v += __shfl_xor_sync(kWarp, v, d, G);
+  return v;
+}
+__device__ __forceinline__ uint32_t group_or(uint32_t v, int G) {
+  for (int d = G >> 1; d > 0; d >>= 1) v |= __shfl_xor_sync(kWarp, v, d, G);
+  return v;
+}
+
+// Beyond the default 48 KiB a block must opt into its dynamic shared
+// memory. `opted` (one array per kernel instance, static in its launcher)
+// remembers the size opted into per device, so that launches captured
+// into a graph after a first launch make no attribute call.
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+inline cudaError_t opt_in_shared(Kernel kernel, size_t bytes,
+                                 int (&opted)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (bytes > (48u << 10) &&
+      (dev >= kMaxDevices || opted[dev] < static_cast<int>(bytes))) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices) opted[dev] = static_cast<int>(bytes);
+  }
+  return cudaSuccess;
+}
+
+// Quads of the ring of a limb-group block reading row-major words:
+// kRunRing slots of two quads per column, one column per stream of the
+// block, shared by the stream's G lanes (kOwn: one per lane).
+__host__ __device__ constexpr int group_ring_quads(int G, bool kOwn) {
+  return kRunRing * 2 * (kOwn ? kGroupThreads : kGroupThreads / G);
+}
+
+// walk_run for a limb group (staged.cu beyond 64 limbs). The G lanes of a
+// stream share one ring column (group_ring_quads): lanes 0 and 1 of the
+// group each copy one 16-byte half of a slot, and after its own wait every
+// lane meets the others at __syncwarp, which makes the copies of slot i
+// visible and shows that every lane has read slot i - 1, whose quads the
+// next copy overwrites. With kOwn each lane copies whole slots into a
+// column of its own instead (G times the ring's shared-memory traffic, the
+// same device-memory sectors). Word indices below 0 (the wrapped warm-up
+// of stream 0, whose steps the kernels discard) read word 0 instead. The
+// number of leading words and of slots depends only on w0 % 8 and
+// w1 - w0, which every lane of a warp shares.
+template <bool kOwn, typename W, typename Q>
+__device__ __forceinline__ void walk_run_group(const uint32_t* x,
+                                               long long w0, long long w1,
+                                               uint4* ring, int G,
+                                               W&& on_word, Q&& on_quad) {
+  const long long a = w0 + ((-w0) & (kRunSlot - 1));  // w0 rounded up
+  const int slots = static_cast<int>((w1 - a) / kRunSlot);
+  const int cols = kOwn ? kGroupThreads : kGroupThreads / G;
+  const int g = threadIdx.x & (G - 1);
+  uint4* mine = ring + (kOwn ? threadIdx.x : threadIdx.x / G);
+  auto at = [&](long long w) { return x + (w < 0 ? 0 : w); };
+  auto fetch = [&](int i) {
+    uint4* d = mine + (i % kRunRing) * 2 * cols;
+    const uint4* src = reinterpret_cast<const uint4*>(at(a + kRunSlot * i));
+    if (kOwn) {
+      cp_async16(d, src);
+      cp_async16(d + cols, src + 1);
+    } else if (g < 2) {
+      cp_async16(d + g * cols, src + g);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kRunRing - 1; ++i) {
+    if (i < slots) fetch(i);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (long long w = w0; w < a; ++w) on_word(w, __ldg(at(w)));
+  for (int i = 0; i < slots; ++i) {
+    // Commit groups 0 .. i + kRunRing - 2 are issued; waiting until at
+    // most kRunRing - 2 are pending completes slot i.
+    cp_async_wait<kRunRing - 2>();
+    if (!kOwn) __syncwarp();
+    const int ahead = i + kRunRing - 1;
+    if (ahead < slots) fetch(ahead);
+    cp_async_commit();
+    const uint4* d = mine + (i % kRunRing) * 2 * cols;
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      on_quad(a + static_cast<long long>(i) * kRunSlot + 4 * h, d[h * cols]);
+    }
+  }
+}
+
 }  // namespace shift_and
 
 // Run the statement(s) after K with `KR` bound to the register bucket for
-// K limbs (1, 2, 3, 4, 8, 16, 32, 64), or to 0 (staged.cu's spill path)
-// beyond 64.
+// K limbs (1, 2, 3, 4, 8, 16, 32, 64); beyond 64 the calling function
+// returns cudaErrorInvalidValue (limb groups launch their own kernels).
 #define SHIFT_AND_FOR_BUCKET(K, ...)                      \
   do {                                                    \
     if ((K) <= 1) {                                       \
@@ -419,7 +539,6 @@ __device__ __forceinline__ void walk_run(const uint32_t* x, long long w0,
       constexpr int KR = 64;                              \
       __VA_ARGS__;                                        \
     } else {                                              \
-      constexpr int KR = 0;                               \
-      __VA_ARGS__;                                        \
+      return cudaErrorInvalidValue;                       \
     }                                                     \
   } while (0)

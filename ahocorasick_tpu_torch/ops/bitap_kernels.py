@@ -21,9 +21,10 @@ raises. Each wrapper counts its launches in a module-level integer
 the main path went through, and keeps the ``(threads, P, Ls, G)`` it last
 launched with (``generic_plan``, ``baked_plan``).
 
-Beyond 64 limbs G1/G2 run limb groups: the K limbs of a stream are split
-over G lanes of a warp, KR limbs each in registers (``limb_group``), so a
-launch has S * P * G threads (``scan_plan``).
+Beyond 64 limbs G1/G2 (and G3/G4, ``staged_kernels``) run limb groups:
+the K limbs of a stream are split over G lanes of a warp, KR limbs each in
+registers (``limb_group``), so a launch has S * P * G threads
+(``scan_plan``). No kernel keeps limb state in device memory.
 """
 
 from __future__ import annotations
@@ -45,31 +46,22 @@ generic_plan: Optional[Tuple[int, int, int, int]] = None
 baked_plan: Optional[Tuple[int, int, int, int]] = None
 
 # Limbs one thread holds in registers (the largest bucket of
-# SHIFT_AND_FOR_BUCKET, csrc/shift_and.cuh). Beyond it, G1/G2 split the
-# limbs over a limb group of lanes; G3/G4 keep the state in a global
-# scratch that their wrappers allocate.
+# SHIFT_AND_FOR_BUCKET, csrc/shift_and.cuh). Beyond it, G1-G4 split the
+# limbs over a limb group of lanes.
 MAX_REG_LIMBS = 64
 # A limb group: at most a warp's 32 lanes of KR = 32 limbs each, then of
-# KR = 64 (csrc/bitap.cu, group_kernel). 2,048 pattern bytes, the bit-
-# parallel engine's bound, never need more than MAX_GROUP_LIMBS limbs.
+# KR = 64 (csrc/shift_and.cuh). 2,048 pattern bytes, the bit-parallel
+# engine's bound, never need more than MAX_GROUP_LIMBS limbs.
 GROUP_LIMBS = (32, 64)
 MAX_GROUP = 32
 MAX_GROUP_LIMBS = MAX_GROUP * GROUP_LIMBS[-1]
-# Threads per block and ring slots of the group kernel (kGroupThreads,
+# Threads per block and ring slots of G1/G2's group kernel (kGroupThreads,
 # kRing in the sources), and the dynamic shared memory one block may opt
 # into on sm_90 (227 KiB): past it the group's tables stay in device
 # memory.
 GROUP_THREADS = 256
 RING = 4
 MAX_SHARED_BYTES = 232_448
-
-# The scratch of G3/G4's spill path [K, S*P] (csrc/staged.cu, K > 64) is
-# kept within the 50 MB L2; these and spill_state / segment_state serve
-# only that path.
-MAX_SPILL_BYTES = 32 << 20
-# Words of padding per limb row of the segmented kernels' scratch: a
-# power-of-two row would map every limb of a thread to the same cache sets.
-SPILL_PAD = 32
 
 LIBRARY = _build.CudaLibrary("bitap.cu", {
     "bitap_generic_scan": (P, P, P, P, I, P, I, P, I, I, I, I, I, I, LL, LL,
@@ -129,22 +121,6 @@ def check_scan_args(lo, hi, sm, em, halo, body) -> Tuple[int, int, int, int]:
     return K, halo.shape[0], body.shape[0], body.shape[1] // 8
 
 
-def spill_state(dev: torch.device, K: int, S: int) -> Optional[torch.Tensor]:
-    """Limb-state scratch [K*S] for K > MAX_REG_LIMBS, else None (S: one
-    column per thread)."""
-    return (torch.empty(K * S, dtype=torch.int32, device=dev)
-            if K > MAX_REG_LIMBS else None)
-
-
-def segment_state(dev: torch.device, K: int,
-                  threads: int) -> Tuple[Optional[torch.Tensor], int]:
-    """(scratch, row) of a segmented launch: the limb-state scratch with
-    rows of ``row = threads + SPILL_PAD`` words (None for K <= 64); the
-    kernel takes ``row`` as its limb stride."""
-    row = threads + SPILL_PAD
-    return spill_state(dev, K, row), row
-
-
 @functools.lru_cache(maxsize=None)
 def resident_threads(dev: torch.device) -> int:
     """Resident thread slots of the card: SMs x threads per SM (270,336 on
@@ -153,40 +129,30 @@ def resident_threads(dev: torch.device) -> int:
     return props.multi_processor_count * props.max_threads_per_multi_processor
 
 
-def _most_segments(L: int, H: int, per_segment: int, align: int,
-                   max_threads: int) -> Tuple[int, int]:
-    """(P, Ls): the most segments P of Ls = L / P bytes, Ls a multiple of
-    ``align`` and at least H, with ``per_segment * P`` threads within
-    ``max_threads``; (1, L) where L leaves no room."""
-    if L % align:
-        raise ValueError(f"L={L} is not a multiple of {align}")
-    best = (1, L)
-    for P in range(2, L // align + 1):
-        if L // P < H or per_segment * P > max_threads:
-            break
-        if (L // align) % P == 0:
-            best = (P, L // P)
-    return best
-
-
-def segment_plan(L: int, H: int, S: int, align: int, K: int,
+def segment_plan(L: int, H: int, S: int, align: int,
                  resident: int) -> Tuple[int, int]:
-    """(P, Ls) of G3-G6: the segmented kernels cut each L-byte stream into
-    P segments of Ls = L / P bytes, one thread per (segment, stream).
+    """(P, Ls) of a launch with S threads per segment: each L-byte stream
+    cut into P segments of Ls = L / P bytes, one thread per (segment,
+    stream) (G5/G6; G1-G4 through ``scan_plan``).
 
     A segment warms up over the H bytes before it (the halo for segment 0,
     the stream's own bytes otherwise), which gives the state of a whole-
     stream scan bit for bit, since a state depends only on the last
     max_len - 1 <= H bytes. The plan takes the most segments such that
-    ``Ls`` is a multiple of ``align`` (4 for end words, 32 for bitmap
-    words), ``Ls >= H`` (the warm-up is at most half a thread's walk), the
-    S * P threads fit the card's ``resident`` thread slots and, beyond
-    MAX_REG_LIMBS limbs (G3/G4's spill path), the limb scratch stays within
-    MAX_SPILL_BYTES. P = 1 where L leaves no room. Derived from the shapes
-    and the card only."""
-    cap = resident if K <= MAX_REG_LIMBS else min(
-        resident, MAX_SPILL_BYTES // (4 * K))
-    return _most_segments(L, H, S, align, cap)
+    ``Ls`` is a multiple of ``align`` (4 for end words, 32 for bitmap words
+    and row-major ring slots), ``Ls >= H`` (the warm-up is at most half a
+    thread's walk) and the S * P threads fit the card's ``resident`` thread
+    slots. P = 1 where L leaves no room. Derived from the shapes and the
+    card only."""
+    if L % align:
+        raise ValueError(f"L={L} is not a multiple of {align}")
+    best = (1, L)
+    for P in range(2, L // align + 1):
+        if L // P < H or S * P > resident:
+            break
+        if (L // align) % P == 0:
+            best = (P, L // P)
+    return best
 
 
 def limb_group(K: int) -> Tuple[int, int]:
@@ -207,25 +173,26 @@ def limb_group(K: int) -> Tuple[int, int]:
     return G, KR
 
 
-def group_tables_shared(K: int, G: int, KR: int) -> bool:
+def group_tables_shared(K: int, G: int, KR: int,
+                        ring_bytes: int = 4 * RING * GROUP_THREADS) -> bool:
     """Whether a limb group's tables fit in a block's shared memory beside
-    the ring: lo and hi, one slice of KR limbs per lane that holds a live
-    limb, each slice padded by 32 / G words (group_shmem_bytes in
-    csrc/bitap.cu)."""
+    its ring of ``ring_bytes`` (G1/G2's by default): lo and hi, one slice
+    of KR limbs per lane that holds a live limb, each slice padded by
+    32 / G words (group_shmem_bytes in csrc/bitap.cu and csrc/staged.cu)."""
     live = -(-K // KR)
-    words = 2 * live * (16 * KR + 32 // G) + RING * GROUP_THREADS
-    return 4 * words <= MAX_SHARED_BYTES
+    return 8 * live * (16 * KR + 32 // G) + ring_bytes <= MAX_SHARED_BYTES
 
 
-def scan_plan(L: int, H: int, S: int, K: int,
-              resident: int) -> Tuple[int, int, int, int]:
-    """(P, Ls, G, KR) of G1/G2: each L-byte stream in P segments of Ls
-    bytes (as segment_plan, with ``align`` 4), each (segment, stream) on G
-    lanes of KR limbs (``limb_group``). The S * P * G threads fit the
-    ``resident`` thread slots, or P = 1 in as many waves as they need.
-    G1/G2 keep no limb scratch, so K puts no other cap on P."""
+def scan_plan(L: int, H: int, S: int, K: int, resident: int,
+              align: int = 4) -> Tuple[int, int, int, int]:
+    """(P, Ls, G, KR) of G1-G4: each L-byte stream in P segments of Ls
+    bytes (as segment_plan: ``align`` 4 for G1/G2's end words, 32 for
+    G3/G4's row-major ring slots), each (segment, stream) on G lanes of KR
+    limbs (``limb_group``). The S * P * G threads fit the ``resident``
+    thread slots, or P = 1 in as many waves as they need. No kernel keeps
+    a limb scratch, so K puts no other cap on P."""
     G, KR = limb_group(K)
-    P, Ls = _most_segments(L, H, S * G, 4, resident)
+    P, Ls = segment_plan(L, H, S * G, align, resident)
     return P, Ls, G, KR
 
 
@@ -244,7 +211,7 @@ def launch(dev: torch.device, fn, name: str, *args) -> None:
 
 
 def padded_tables(lo, hi):
-    """(lo, hi) [K, 16] as G1/G2 read them: views of allocations padded
+    """(lo, hi) [K, 16] as G1-G4 read them: views of allocations padded
     with zero limbs to whole slices of the limb group (``limb_group``),
     since where a group's tables stay in device memory (K > 1,728) the last
     live lane reads rows past limb K - 1 up to its slice's end. Those rows
@@ -259,11 +226,13 @@ def padded_tables(lo, hi):
                  for t in (lo, hi))
 
 
-def _tables_in_shared(lo, hi, K: int, G: int, KR: int) -> int:
-    """1 where a G1/G2 launch keeps its tables in shared memory, else 0,
-    after checking that the allocations of lo and hi hold the whole slices
-    that the lanes read (``padded_tables``)."""
-    if G == 1 or group_tables_shared(K, G, KR):
+def tables_in_shared(lo, hi, K: int, G: int, KR: int,
+                     ring_bytes: int = 4 * RING * GROUP_THREADS) -> int:
+    """1 where a launch keeps its tables in shared memory (always for
+    G = 1; for a limb group where ``group_tables_shared`` says so), else
+    0, after checking that the allocations of lo and hi hold the whole
+    slices that the lanes read (``padded_tables``)."""
+    if G == 1 or group_tables_shared(K, G, KR, ring_bytes):
         return 1
     rows = -(-K // KR) * KR
     for name, t in (("lo", lo), ("hi", hi)):
@@ -300,7 +269,7 @@ def bitap_scan_generic(lo, hi, sm, em, halo, body, n0: int, n: int,
     S = tiles * 1024
     nseg, Ls, G, KR = scan_plan(4 * Wb, 4 * Hw, S, K, resident_threads(dev))
     counts, words = _outputs(dev, K, Wb, tiles, extract)
-    shared = _tables_in_shared(lo, hi, K, G, KR)
+    shared = tables_in_shared(lo, hi, K, G, KR)
     launch(dev, lib.bitap_generic_scan, "bitap_generic_scan",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
            halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg, G, KR, shared,
@@ -338,7 +307,7 @@ def bitap_scan_baked(lo, hi, sm, em, end_limbs: Sequence[int], halo, body,
     S = tiles * 1024
     nseg, Ls, G, KR = scan_plan(4 * Wb, 4 * Hw, S, K, resident_threads(dev))
     counts, words = _outputs(dev, Ke, Wb, tiles, extract)
-    shared = _tables_in_shared(lo, hi, K, G, KR)
+    shared = tables_in_shared(lo, hi, K, G, KR)
     launch(dev, lib.bitap_baked_scan, "bitap_baked_scan",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
            Ke, halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg, G, KR,

@@ -14,7 +14,8 @@ On a CPU tensor a wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises. Launches are counted in
 ``generic_launches`` (G5) and ``baked_launches`` (G6), and the
 ``(threads, P, Ls)`` of each one's last launch kept in ``generic_plan`` and
-``baked_plan``.
+``baked_plan``. The kernels hold at most 64 limbs in registers, all that
+``FingerprintTables`` packs; a launch with more raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,14 +27,13 @@ import torch
 from .. import _build
 from .._build import I, LL, P
 from .bitap_kernels import (
+    MAX_REG_LIMBS,
     PlainScan,
     check_scan_args,
     launch,
     or_limbs,
-    ptr,
     resident_threads,
     segment_plan,
-    segment_state,
     to_i32,
 )
 
@@ -43,7 +43,7 @@ generic_plan: Optional[Tuple[int, int, int]] = None
 baked_plan: Optional[Tuple[int, int, int]] = None
 
 LIBRARY = _build.CudaLibrary("fingerprint.cu", {
-    "fp_bitmap": (P, P, P, P, I, P, I, P, I, I, I, I, LL, LL, P, P, P, I, P),
+    "fp_bitmap": (P, P, P, P, I, P, I, P, I, I, I, I, LL, LL, P, P, P),
 })
 
 
@@ -64,20 +64,22 @@ def _bitmap(lo, hi, sm, em, halo, body,
     dev = body.device
     if dev.type == "cpu":
         return fp_bitmap_plain(lo, hi, sm, em, halo, body, window), None
+    if K > MAX_REG_LIMBS:
+        raise ValueError(f"the bitmap kernels hold at most {MAX_REG_LIMBS} "
+                         f"limbs, got K={K}")
     lib = LIBRARY.load()
     S = tiles * 1024
-    nseg, Ls = segment_plan(4 * Wb, 4 * Hw, S, 32, K, resident_threads(dev))
+    nseg, Ls = segment_plan(4 * Wb, 4 * Hw, S, 32, resident_threads(dev))
     # Zeroed: the segments of a stream add into its count.
     counts = torch.zeros((tiles, 8, 128), dtype=torch.int32, device=dev)
     bitmap = torch.empty((tiles, Wb // 8, 8, 128), dtype=torch.int32,
                          device=dev)
     n0, n = window if window is not None else (0, 0)
-    state, row = segment_state(dev, K, S * nseg)
     launch(dev, lib.fp_bitmap, "fp_bitmap",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
            halo.data_ptr(), Hw, body.data_ptr(), Wb, S, nseg,
            int(window is not None), n0, n, counts.data_ptr(),
-           bitmap.data_ptr(), ptr(state), row)
+           bitmap.data_ptr())
     return (counts, bitmap), (S * nseg, nseg, Ls)
 
 

@@ -20,9 +20,10 @@ kernels' arithmetic on them. Outputs keep the JAX package's layouts (see
 
 On a CPU tensor a wrapper computes its kernel's plain version; on a CUDA
 tensor it launches the kernel or raises. Launches are counted in
-``flags_launches`` and ``gathered_launches``; the ``(threads, P, Ls)`` of
-the last launch is kept in ``flags_plan`` and ``gathered_plan`` (the
-kernels cut each stream into P segments of Ls bytes, ``segment_plan``).
+``flags_launches`` and ``gathered_launches``; the ``(threads, P, Ls, G)``
+of the last launch is kept in ``flags_plan`` and ``gathered_plan`` (the
+kernels cut each stream into P segments of Ls bytes and, beyond 64 limbs,
+give each (segment, stream) a limb group of G lanes: ``scan_plan``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from .. import _build
 from .._build import I, LL, P
 from .bitap_kernels import (
+    GROUP_THREADS,
     PlainScan,
     check_tables,
     check_tensors,
@@ -42,25 +44,47 @@ from .bitap_kernels import (
     ptr,
     resident_threads,
     scan_plain,
-    segment_plan,
-    segment_state,
+    scan_plan,
+    tables_in_shared,
     to_i32,
 )
 
 flags_launches = 0
 gathered_launches = 0
-flags_plan: Optional[Tuple[int, int, int]] = None
-gathered_plan: Optional[Tuple[int, int, int]] = None
+flags_plan: Optional[Tuple[int, int, int, int]] = None
+gathered_plan: Optional[Tuple[int, int, int, int]] = None
 
 # Segments of the staged kernels are whole ring slots: 32 bytes, one
 # sector of a thread's run of row-major words (csrc/shift_and.cuh).
 SEGMENT_ALIGN = 32
+# Slots per ring column of the row-major ring (kRunRing).
+RUN_RING = 3
+# Whether a limb group's lanes each keep a ring column of their own (else
+# the G lanes of a stream share one).
+GROUP_OWN_RING = False
 
 LIBRARY = _build.CudaLibrary("staged.cu", {
-    "staged_flags": (P, P, P, P, I, P, I, I, I, I, P, P, I, P),
-    "staged_gathered": (P, P, P, P, I, I, P, P, I, I, I, I, LL, LL, P, P, P,
-                        I, P),
+    "staged_flags": (P, P, P, P, I, P, I, I, I, I, I, I, I, I, P, P),
+    "staged_gathered": (P, P, P, P, I, I, P, P, I, I, I, I, I, I, I, I, LL,
+                        LL, P, P, P),
 })
+
+
+def _group_ring_bytes(G: int) -> int:
+    """Shared-memory bytes of a limb-group block's ring (group_ring_quads
+    in csrc/shift_and.cuh): RUN_RING slots of 32 bytes per column, a
+    column per stream of the block (per lane with GROUP_OWN_RING)."""
+    return RUN_RING * 32 * (GROUP_THREADS if GROUP_OWN_RING
+                            else GROUP_THREADS // G)
+
+
+def _plan(lo, hi, K: int, Wb: int, H: int, S: int, dev):
+    """(P, Ls, G, KR, tables in shared memory) of a launch over S lanes of
+    4 * Wb bytes."""
+    P, Ls, G, KR = scan_plan(4 * Wb, H, S, K, resident_threads(dev),
+                             SEGMENT_ALIGN)
+    shared = tables_in_shared(lo, hi, K, G, KR, _group_ring_bytes(G))
+    return P, Ls, G, KR, shared
 
 
 def reset_counts() -> None:
@@ -110,16 +134,14 @@ def staged_flags(lo, hi, sm, em, rows, H: int) -> torch.Tensor:
     if dev.type == "cpu":
         return staged_flags_plain(lo, hi, sm, em, rows, H)
     lib = LIBRARY.load()
-    nseg, Ls = segment_plan(4 * Wb, H, ns, SEGMENT_ALIGN, K,
-                            resident_threads(dev))
+    nseg, Ls, G, KR, shared = _plan(lo, hi, K, Wb, H, ns, dev)
     flags = torch.zeros((ns // 1024, 8, 128), dtype=torch.int32, device=dev)
-    state, row = segment_state(dev, K, ns * nseg)
     launch(dev, lib.staged_flags, "staged_flags",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
-           rows.data_ptr(), Hw, Wb, ns, nseg, flags.data_ptr(), ptr(state),
-           row)
+           rows.data_ptr(), Hw, Wb, ns, nseg, G, KR, shared,
+           int(GROUP_OWN_RING), flags.data_ptr())
     flags_launches += 1
-    flags_plan = (ns * nseg, nseg, Ls)
+    flags_plan = (ns * nseg * G, nseg, Ls, G)
     return flags
 
 
@@ -173,20 +195,18 @@ def staged_gathered(lo, hi, sm, em, end_limbs: Sequence[int], sid, rows,
                          "limb")
     lib = LIBRARY.load()
     S = sid.numel()
-    nseg, Ls = segment_plan(4 * Wb, H, S, SEGMENT_ALIGN, K,
-                            resident_threads(dev))
+    nseg, Ls, G, KR, shared = _plan(lo, hi, K, Wb, H, S, dev)
     # Counts are sums of the segments' atomicAdds; every end word is
     # written (zeros for pad lanes).
     counts = torch.zeros((S // 1024, 8, 128), dtype=torch.int32, device=dev)
     words = (torch.empty((S // 1024, 4 * Wb, Ke, 8, 128), dtype=torch.int32,
                          device=dev) if extract else None)
-    state, row = segment_state(dev, K, S * nseg)
     launch(dev, lib.staged_gathered, "staged_gathered",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K, Ke,
-           sid.data_ptr(), rows.data_ptr(), Hw, Wb, S, nseg, n0, n,
-           counts.data_ptr(), ptr(words), ptr(state), row)
+           sid.data_ptr(), rows.data_ptr(), Hw, Wb, S, nseg, G, KR, shared,
+           int(GROUP_OWN_RING), n0, n, counts.data_ptr(), ptr(words))
     gathered_launches += 1
-    gathered_plan = (S * nseg, nseg, Ls)
+    gathered_plan = (S * nseg * G, nseg, Ls, G)
     return counts, words
 
 

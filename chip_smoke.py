@@ -37,6 +37,12 @@ facade call; kernel-vs-plain launches are not counted):
      594,915 bytes (G5);
   7. staged extract, 16 MiB: the five names plus a 70-byte pattern (no
      device verify, so the staged route; G3 and G4 in extract mode);
+ 7b. the staged route beyond 64 limbs: 100 random words of 8-16 bytes
+     (Kf = 75, K = 83) over 64 MiB of prose, count (G3 and G4 in limb
+     groups of 4 lanes), and with the 70-byte pattern over 16 MiB,
+     find_overlapping_iter (G4 in extract mode at K = 85, Ke = 83), each
+     against host truth, every launch of both calls against its plain
+     version on the call's own inputs;
   8. dict1k: a 1,000-entry case-insensitive name dictionary over 64 MiB of
      prose, count and find_overlapping_iter (G6), and a 512 KiB count (G5);
   9. cascade, dict100k: 100,000 case-insensitive names (the reference's
@@ -77,13 +83,14 @@ facade call; kernel-vs-plain launches are not counted):
      records at launch; the device time of the copies that the staged
      kernels no longer need (the stream-major layout and the candidate
      gather, as torch operations);
-      the limb rows (LIMB_ROWS) with their group size G;
+      the limb rows (LIMB_ROWS, STAGED_ROWS) with their group size G;
      whole facade calls (host clock, median of 7) with a torch.profiler
      trace of one call each for the device's idle share (not measured
      where the trace misses the haystack's upload or reaches outside the
      call; the device walk's call, with its many launches, is traced
      last); the parts of the
-     64 MiB staged count and of the dict100k cascade count and extraction;
+     64 MiB staged counts (five names, 100 words) and of the dict100k
+     cascade count and extraction;
  16. a `kernels` JSON line (launches from the facade calls, errors, times,
      bounds), then the card's name and power limit, then the final
      `{"ok": true, ...}` line.
@@ -91,12 +98,14 @@ facade call; kernel-vs-plain launches are not counted):
 Exits non-zero without the final line when no CUDA device is present or
 anything fails. Details go to chiprun_out/chip_smoke.json.
 
-    python3 chip_smoke.py --limb-rows [--port-root DIR]
+    python3 chip_smoke.py --limb-rows [--port-root DIR] [--own-ring]
 
-builds csrc/bitap.cu alone and prints the times of the LIMB_ROWS launches
-(G1/G2 beyond 64 limbs) as one JSON line, with the port found under DIR:
-run with another tree's checkout and with this one in turns, within one
-call, it compares the two kernels on the same card and the same bytes.
+builds csrc/bitap.cu and csrc/staged.cu alone and prints the times of the
+LIMB_ROWS and STAGED_ROWS launches (G1-G4 beyond 64 limbs) and of the
+facade's 64 MiB counts of the 128 and the 100 words as one JSON line,
+with the port found under DIR: run with another tree's checkout and with
+this one in turns, within one call, it compares the two trees' kernels
+on the same card and the same bytes.
 """
 
 import argparse
@@ -259,6 +268,105 @@ LIMB_ROWS = (
     ("G1 count 4 MiB, K=1121, no pad byte", 1121, 4 * MIB, "G1", False),
     ("G2 count 4 MiB, K=1121", 1121, 4 * MIB, "G2", False),
 )
+
+
+def staged_sets():
+    """{name: patterns} of the staged route beyond 64 limbs, defined in
+    tests/test_torch_limb_sets.py: 100 random lowercase words of 8-16
+    bytes ("w100": Kf = 75, K = 83, staged-eligible) and the same with
+    the 70-byte LONG ("w100_long": Kf = 76, K = 85, Ke = 83, halo 128)."""
+    limb_sets()  # puts tests/ on the path
+    from test_torch_limb_sets import STAGED_SETS
+    return STAGED_SETS
+
+
+# The staged limb-group rows (G3/G4 beyond 64 limbs): (name, key of
+# staged_layouts, kernel, extract). The facade's own launches for the 100
+# words: the 64 MiB count (G3 over every row, G4 over the candidates) and
+# the 16 MiB extraction with LONG (G4 in extract mode).
+STAGED_ROWS = (
+    ("G3 flags 64 MiB, Kf=75 (100 words)", "count", "G3", False),
+    ("G4 count 64 MiB, K=83 (100 words), facade candidates", "count", "G4",
+     False),
+    ("G4 extract 16 MiB, K=85, Ke=83 (100 words + LONG)", "extract", "G4",
+     True),
+)
+
+
+def staged_hay(pats, n: int, seed: int, longs: int = 0) -> bytes:
+    """Prose-shaped text (build_dict_text) with the patterns planted as
+    words at rate 0.002, and ``longs`` copies of LONG, from a generator of
+    its own, so every tree that times the rows scans the same bytes."""
+    hay = build_dict_text(n, pats, seed=seed + 31)
+    if not longs:
+        return hay
+    buf = bytearray(hay)
+    rng = np.random.default_rng([seed, n])
+    for at in rng.choice(n - 200, longs, replace=False):
+        buf[at:at + len(LONG)] = LONG
+    return bytes(buf)
+
+
+def staged_layouts(TS, dev, seed):
+    """{"count" | "extract": (engine, prepared haystack, sid, haystack)}:
+    the 100 words over 64 MiB and the 100 words + LONG over 16 MiB, with
+    the candidate ids at the cap the facade's count settles on."""
+    sets, out = staged_sets(), {}
+    for key, name, n, longs in (("count", "w100", 64 * MIB, 0),
+                                ("extract", "w100_long", 16 * MIB, 500)):
+        pats = sets[name] if key == "count" else sets["w100"]
+        hay = staged_hay(pats, n, seed, longs)
+        st = TS.StagedEngine(sets[name], False, dev)
+        ph = st.prepare(hay)
+        cap = max(1024, 1 << max(ph.tiles * 1024 // 8 - 1, 0).bit_length())
+        while True:
+            ncand, cand = st.candidates(ph, cap)
+            if ncand <= cap:
+                break
+            cap *= 2
+        out[key] = (st, ph, cand.to(torch.int32).reshape(-1, 8, 128), hay)
+    return out
+
+
+def staged_args(layout, kernel, extract):
+    """The wrapper arguments of a staged row's launch (G4: the window
+    [0, n))."""
+    st, ph, sid, _ = layout
+    (flo, fhi, fsm, fem), (lo, hi, sm, em) = st._args()
+    if kernel == "G3":
+        return (flo, fhi, fsm, fem, ph.rows, st.halo)
+    return (lo, hi, sm, em, st.full.end_limbs, sid, ph.rows, st.halo, 0,
+            ph.n, extract)
+
+
+def time_staged_rows(SK, layouts, sm_hz, card, with_plain):
+    """Time every STAGED_ROWS launch on ``layouts`` (staged_layouts)
+    through the wrappers of ``SK`` (this tree's staged_kernels or another
+    tree's), with the plain version's time where ``with_plain``."""
+    rows = {}
+    for name, key, kernel, extract in STAGED_ROWS:
+        st, ph, sid, _ = layouts[key]
+        a = staged_args(layouts[key], kernel, extract)
+        lanes = sid.numel()
+        ncand = int((sid >= 0).sum())
+        if kernel == "G3":
+            wrap, plain = SK.staged_flags, SK.staged_flags_plain
+            spec = dict(K=st.fp.k, n=ph.n, lanes=ph.tiles * 1024,
+                        out_per_byte=0, popc=False, extra_in=0)
+        else:
+            wrap, plain = SK.staged_gathered, SK.staged_gathered_plain
+            Ke = len(st.full.end_limbs)
+            spec = dict(K=st.full.k, n=ncand * ph.L, lanes=lanes,
+                        out_per_byte=4 * Ke if extract else 0, popc=True,
+                        extra_in=4 * lanes)
+        rows[name] = timed_row(
+            name, spec["K"], spec["n"], spec["lanes"], spec["out_per_byte"],
+            lambda: wrap(*a), (lambda: plain(*a)) if with_plain else None,
+            (lambda: SK.flags_plan) if kernel == "G3" else (
+                lambda: SK.gathered_plan), sm_hz, card, spec["popc"],
+            spec["extra_in"])
+        rows[name]["candidates"] = ncand
+    return rows
 
 
 def limb_haystack(pats, K: int, n: int, seed: int) -> bytes:
@@ -624,47 +732,95 @@ def card_rates():
             sms * max_mhz * 1e6)
 
 
+def build_all(libs):
+    """Build the libraries, one nvcc each, all started together; raises
+    the first build's error. Returns each library's build seconds."""
+    errors, seconds = [], {}
+
+    def build(lib):
+        t0 = time.time()
+        try:
+            lib.load()
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+        seconds[lib.stem] = time.time() - t0
+    threads = [threading.Thread(target=build, args=(lib,)) for lib in libs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return seconds
+
+
+def e2e_call(name, fn, card):
+    """(median ms of RUNS host-clock calls, trace) of one facade call."""
+    ms = float(np.median([host_ms(fn) for _ in range(RUNS)]))
+    log(f"[e2e] {name}: {ms:.3f} ms (median of {RUNS}, host clock) | {card}")
+    traced = trace(fn)
+    log_trace(name, *traced)
+    return ms, dict(zip(("call_ms", "busy_ms", "ms_by_name", "span_ms"),
+                        traced))
+
+
 def limb_rows_main(args) -> int:
-    """--limb-rows: build csrc/bitap.cu alone, hold every LIMB_ROWS launch
-    against its plain version and time it, with the port under
-    --port-root (default: this checkout). Run once with another tree's
-    checkout and once with this one, in turns within one call, it gives
-    both trees' times on the same card and the same bytes."""
+    """--limb-rows: build csrc/bitap.cu and csrc/staged.cu alone, hold
+    every LIMB_ROWS and STAGED_ROWS launch against its plain version and
+    time it, with the port under --port-root (default: this checkout). Run
+    once with another tree's checkout and once with this one, in turns
+    within one call, it gives both trees' times on the same card and the
+    same bytes."""
     if args.port_root:
         sys.path.insert(0, os.path.abspath(args.port_root))
     try:
+        from ahocorasick_tpu_torch import AhoCorasick
         from ahocorasick_tpu_torch.ops import bitap as TB
         from ahocorasick_tpu_torch.ops import bitap_kernels as TK
+        from ahocorasick_tpu_torch.ops import staged as TS
+        from ahocorasick_tpu_torch.ops import staged_kernels as SK
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
+    if args.own_ring:
+        SK.GROUP_OWN_RING = True
     kind, card, sm_hz = card_rates()
-    t0 = time.time()
-    TK.LIBRARY.load()
-    log(f"[limb rows] {os.path.dirname(TK.__file__)}: bitap.cu built in "
-        f"{time.time() - t0:.1f} s | {card}")
-    layouts = limb_layouts(TB, torch.device("cuda"), args.seed)
+    built = build_all((TK.LIBRARY, SK.LIBRARY))
+    log(f"[limb rows] {os.path.dirname(TK.__file__)}: " + ", ".join(
+        f"{k}.cu built in {v:.1f} s" for k, v in built.items())
+        + f" (in parallel) | {card}")
+    dev = torch.device("cuda")
+    layouts = limb_layouts(TB, dev, args.seed)
     for name, K, n, kernel, extract in LIMB_ROWS:
         max_abs_err(*limb_against_plain(TK, layouts[K, n, kernel], kernel,
                                         extract))
-    log("[limb rows] every launch = plain")
+    slayouts = staged_layouts(TS, dev, args.seed)
+    for name, key, kernel, extract in STAGED_ROWS:
+        a = staged_args(slayouts[key], kernel, extract)
+        fns = ((SK.staged_flags, SK.staged_flags_plain) if kernel == "G3"
+               else (SK.staged_gathered, SK.staged_gathered_plain))
+        got, want = fns[0](*a), fns[1](*a)
+        max_abs_err(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,))
+    log(f"[limb rows] every launch = plain (own ring: {args.own_ring})")
     rows = time_limb_rows(TK, layouts, sm_hz, card, with_plain=False)
-    # The facade's 64 MiB count of the 128 words (one G2 launch), host
-    # clock ending in a synchronise, median of RUNS.
-    from ahocorasick_tpu_torch import AhoCorasick
+    srows = time_staged_rows(SK, slayouts, sm_hz, card, with_plain=False)
+    # The facade's 64 MiB counts of the 128 words (one G2 launch) and of
+    # the 100 words (staged: G3, G4), host clock ending in a synchronise,
+    # median of RUNS.
     _, _, hay = layouts[103, 64 * MIB, "G2"]
     ac = AhoCorasick(limb_sets()[103], device="cuda")
-    call_ms = float(np.median([host_ms(lambda: ac.count_matches(hay))
-                               for _ in range(RUNS)]))
-    log(f"[e2e] 128 words (K=103) count_matches 64 MiB: {call_ms:.3f} ms "
-        f"(median of {RUNS}, host clock) | {card}")
-    traced = trace(lambda: ac.count_matches(hay))
-    log_trace("128 words (K=103) count_matches 64 MiB", *traced)
-    print(json.dumps({"limb_rows": rows, "k103_count_ms": call_ms,
-                      "k103_count_trace": dict(zip(
-                          ("call_ms", "busy_ms", "ms_by_name", "span_ms"),
-                          traced)),
+    call_ms, traced = e2e_call("128 words (K=103) count_matches 64 MiB",
+                               lambda: ac.count_matches(hay), card)
+    hay_w = slayouts["count"][3]
+    ac_w = AhoCorasick(staged_sets()["w100"], device="cuda")
+    w_ms, w_traced = e2e_call("100 words (Kf=75, K=83) count_matches 64 MiB",
+                              lambda: ac_w.count_matches(hay_w), card)
+    print(json.dumps({"limb_rows": rows, "staged_rows": srows,
+                      "own_ring": args.own_ring,
+                      "k103_count_ms": call_ms, "k103_count_trace": traced,
+                      "w100_count_ms": w_ms, "w100_count_trace": w_traced,
                       "port": os.path.dirname(TK.__file__), "card": card,
                       "kind": kind}))
     return 0
@@ -674,8 +830,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--limb-rows", action="store_true",
-                    help="time only the K > 64 rows of G1/G2 (no plain "
-                    "runs, no facade) and print them as one JSON line")
+                    help="time only the K > 64 rows of G1-G4 and two "
+                    "facade counts, and print them as one JSON line")
+    ap.add_argument("--own-ring", action="store_true",
+                    help="with --limb-rows: the staged limb groups with a "
+                    "ring column per lane (else one per stream)")
     ap.add_argument("--port-root", default=None,
                     help="with --limb-rows: the directory holding the "
                     "ahocorasick_tpu_torch to time (another tree's "
@@ -706,6 +865,7 @@ def main() -> int:
         from ahocorasick_tpu_torch.ops import cascade as TC
         from ahocorasick_tpu_torch.ops import fingerprint as TF
         from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
+        from ahocorasick_tpu_torch.ops import staged as TS
         from ahocorasick_tpu_torch.ops import staged_kernels as SK
         from ahocorasick_tpu_torch.ops.compaction import select_nonzero_words
     except ImportError as e:
@@ -737,29 +897,18 @@ def main() -> int:
     # 2. Build: one nvcc per source, all started together ---------------------
     t0 = time.time()
     libs = (TK.LIBRARY, SK.LIBRARY, FK.LIBRARY)
-    errors = []
-
-    def build(lib):
-        try:
-            lib.load()
-        except Exception as e:  # re-raised below, in the main thread
-            errors.append(e)
-    threads = [threading.Thread(target=build, args=(lib,)) for lib in libs]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join()
-    if errors:
-        raise errors[0]
+    built = build_all(libs)
     log(f"[build] bitap.cu, staged.cu, fingerprint.cu -> sm_90a in "
-        f"{time.time() - t0:.1f} s (in parallel)")
+        f"{time.time() - t0:.1f} s (in parallel: " + ", ".join(
+            f"{k}.cu {v:.1f} s" for k, v in built.items()) + ")")
+    report["build_s"] = built
     report["ptxas"] = {}
     for lib in libs:
         rep = lib.report()
         report["ptxas"][lib.stem] = rep
         for ln in ptxas_summary(rep):
             if ("spill" in ln and " 0 bytes spill" not in ln) or (
-                    "group_kernel" in ln):
+                    "group_" in ln):
                 log(f"[build] {lib.stem}:{ln}")
     # What the compiled step issues per limb and byte step, warm-up and
     # scanned steps alike, beside the least that the bound counts
@@ -786,10 +935,21 @@ def main() -> int:
     # The limb groups (K > 64): the growth from KR = 32 to KR = 64 gives
     # what a limb costs; the whole loop of KR = 32 over its byte steps and
     # 32 limbs counts the per-byte work too (the shuffle once per byte).
-    for name, kernel in (("G1 count", "group_kernelILi%dELb0ELb0ELb1E"),
-                         ("G2 count", "group_kernelILi%dELb1ELb0ELb1E")):
-        growth, _ = step_issue(sass_of[TK.LIBRARY.stem], kernel, 32, 64)
-        loop = word_loop(sass_of[TK.LIBRARY.stem], kernel % 32)
+    # G3/G4's limb groups are read on their shared-table, shared-ring
+    # instances, the ones the staged rows launch.
+    sass_of[SK.LIBRARY.stem] = subprocess.run(
+        [cuobjdump, "-sass", SK.LIBRARY.path], capture_output=True,
+        text=True, timeout=300, check=True).stdout
+    for name, lib, kernel in (
+            ("G1 count", TK.LIBRARY, "group_kernelILi%dELb0ELb0ELb1E"),
+            ("G2 count", TK.LIBRARY, "group_kernelILi%dELb1ELb0ELb1E"),
+            ("G3 flags", SK.LIBRARY, "group_flags_kernelILi%dELb1ELb0E"),
+            ("G4 count", SK.LIBRARY,
+             "group_gathered_kernelILi%dELb1ELb0ELb0E"),
+            ("G4 extract", SK.LIBRARY,
+             "group_gathered_kernelILi%dELb1ELb0ELb1E")):
+        growth, _ = step_issue(sass_of[lib.stem], kernel, 32, 64)
+        loop = word_loop(sass_of[lib.stem], kernel % 32)
         steps = round(loop.get("LDS", 0) / (2 * 32))
         whole = sum(loop.values()) / (steps * 32)
         shfl = loop.get("SHFL", 0) / steps
@@ -1055,7 +1215,7 @@ def main() -> int:
     # The 64 MiB count of the 128-word set, timed end to end (section 15).
     ac_k103 = AhoCorasick(lsets[103], device=dev)
     eng_k103 = ac_k103._bitap_engine()
-    _, _, hay_w = layouts[103, 64 * MIB, "G2"]
+    _, _, hay_k103 = layouts[103, 64 * MIB, "G2"]
     n_k103 = counts_of[103, 64 * MIB]
 
     # 6. Fingerprint fused extract of the five names ----------------------------
@@ -1110,6 +1270,56 @@ def main() -> int:
         f"{c['G4']}; {ncand7} candidates in cap {st7._cap_s}; G4 words = "
         f"plain (P={SK.gathered_plan[1]}, H={st7.halo}) "
         f"({time.time() - t0:.1f} s)")
+
+    # 7b. The staged route beyond 64 limbs: 100 words ---------------------
+    # The facade's count of 100 random words of 8-16 bytes over 64 MiB of
+    # prose (staged: G3 at Kf = 75 over every row, G4 at K = 83 over the
+    # candidates' rows, both in limb groups of 4 lanes) and its
+    # find_overlapping_iter with LONG over 16 MiB (staged extract: G4 at
+    # K = 85, Ke = 83, halo 128), each against host truth; every launch
+    # of both calls held against its plain version on the call's own
+    # inputs, at full size.
+    t0 = time.time()
+    ssets = staged_sets()
+    slayouts = staged_layouts(TS, dev, args.seed)
+    w100, w100_long = ssets["w100"], ssets["w100_long"]
+    hay_w = slayouts["count"][3]
+    n_w = len(host_pairs(w100, hay_w))
+    ac_w = AhoCorasick(w100, device=dev)
+    all_launches = tuple(range(16))
+    (got, c), held = drive_held(lambda: ac_w.count_matches(hay_w),
+                                ["G3", "G4"], all_launches)
+    check("100 words staged count 64 MiB", got, n_w)
+    w_plans = (SK.flags_plan, SK.gathered_plan)
+    st_w = ac_w._staged
+    assert (st_w.fp.k, st_w.full.k) == (75, 83), (st_w.fp.k, st_w.full.k)
+    assert c["G3"] == c["G4"] == 1 and w_plans[0][3] == w_plans[1][3] == 4, (
+        c, w_plans)
+    log(f"[staged groups] 100 words count 64 MiB: {got} matches = host "
+        f"truth; launches G3 {c['G3']} G4 {c['G4']}; Kf={st_w.fp.k} "
+        f"K={st_w.full.k}; G3 {w_plans[0][0]} threads, P={w_plans[0][1]} x "
+        f"Ls={w_plans[0][2]} B, G={w_plans[0][3]}; G4 {w_plans[1][0]} "
+        f"threads, P={w_plans[1][1]} x Ls={w_plans[1][2]} B, "
+        f"G={w_plans[1][3]}; kernel = plain at launches {held}")
+    hay_wl = slayouts["extract"][3]
+    truth_wl = overlapping_order(w100_long, host_pairs(w100_long, hay_wl))
+    ac_wl = AhoCorasick(w100_long, device=dev)
+    (got, c), held = drive_held(
+        lambda: triples(ac_wl.find_overlapping_iter(hay_wl)), ["G3", "G4"],
+        all_launches)
+    check("100 words + LONG staged extract 16 MiB", got, truth_wl)
+    assert ac_wl._fp is not None and ac_wl._fp.dv is None
+    st_wl = ac_wl._staged
+    assert (st_wl.full.k, len(st_wl.full.end_limbs), st_wl.halo) == (
+        85, 83, 128), (st_wl.full.k, st_wl.halo)
+    wl_plan = SK.gathered_plan
+    assert wl_plan[3] == 4, wl_plan
+    log(f"[staged groups] 100 words + LONG find_overlapping_iter 16 MiB: "
+        f"{len(got)} overlapping = host truth; launches G3 {c['G3']} G4 "
+        f"{c['G4']}; K={st_wl.full.k} Ke={len(st_wl.full.end_limbs)} "
+        f"H={st_wl.halo}; G4 {wl_plan[0]} threads, P={wl_plan[1]} x "
+        f"Ls={wl_plan[2]} B, G={wl_plan[3]}; kernel = plain at launches "
+        f"{held} ({time.time() - t0:.1f} s)")
 
     # 8. dict1k ----------------------------------------------------------------------
     t0 = time.time()
@@ -1541,6 +1751,11 @@ def main() -> int:
                           g5, popc=False),
     }
     rows.update(time_limb_rows(TK, layouts, sm_hz, card, with_plain=True))
+    srows = time_staged_rows(SK, slayouts, sm_hz, card, with_plain=True)
+    for (name, *_), plan in zip(STAGED_ROWS, (*w_plans, wl_plan)):
+        r = srows[name]
+        assert (r["threads"], r["P"], r["Ls"], r["G"]) == plan, (r, plan)
+    rows.update(srows)
     report["timings"] = rows
     report["launches"] = launches
 
@@ -1593,7 +1808,12 @@ def main() -> int:
         e2e("no-pad set count_matches 4 MiB, engine='cascade' (G5)",
             len(hay_n), lambda: ac_n.count_matches(hay_n)),
         e2e("128 words (K=103) count_matches 64 MiB (G2 limb groups)",
-            len(hay_w), lambda: ac_k103.count_matches(hay_w)),
+            len(hay_k103), lambda: ac_k103.count_matches(hay_k103)),
+        e2e("100 words (Kf=75, K=83) count_matches 64 MiB (staged: G3, G4 "
+            "limb groups)", len(hay_w), lambda: ac_w.count_matches(hay_w)),
+        e2e("100 words + LONG find_overlapping_iter 16 MiB (staged: G3, G4 "
+            "limb groups)", len(hay_wl),
+            lambda: list(ac_wl.find_overlapping_iter(hay_wl))),
         # Last: the trace of the call after it was seen to miss its
         # upload copy.
         e2e("dict1k count_matches 64 MiB, engine='dfa-scan' (device walk)",
@@ -1606,13 +1826,13 @@ def main() -> int:
     # layout and G2 with the sum, each ended by a synchronise.
     wparts = {k: [] for k in ("count_matches", "sum_of_parts", "pack",
                               "upload", "layout", "G2_and_sum")}
-    L_w, tiles_w = eng_k103._layout(len(hay_w))
+    L_w, tiles_w = eng_k103._layout(len(hay_k103))
     for _ in range(RUNS):
         wparts["count_matches"].append(
-            host_ms(lambda: ac_k103.count_matches(hay_w)))
+            host_ms(lambda: ac_k103.count_matches(hay_k103)))
         t0 = time.perf_counter()
         x32 = torch.from_numpy(eng_k103._pack(
-            hay_w, L_w, tiles_w, pad=eng_k103.tables.pad_byte))
+            hay_k103, L_w, tiles_w, pad=eng_k103.tables.pad_byte))
         t1 = time.perf_counter()
         xd = x32.to(dev)
         torch.cuda.synchronize()
@@ -1637,44 +1857,62 @@ def main() -> int:
         + f" | {card}")
     report["k103_count_parts"] = dict(runs_ms=wparts, median_ms=wmed)
 
-    # The 64 MiB staged count's steps, RUNS times, each run beside a whole
+    # The 64 MiB staged counts' steps (the five names; the 100 words,
+    # whose kernels run limb groups), RUNS times, each run beside a whole
     # count_matches call: the host pack, the pageable upload (its rows are
     # what G3 and G4 read), G3 with the candidate compaction, G4 over the
     # candidates' rows and the sum, each ended by a synchronise and read on
-    # the host clock, so the parts add up to their sum.
-    parts = {k: [] for k in ("count_matches", "sum_of_parts", "pack",
-                             "upload", "flags_and_select", "rescan_sum")}
-    for _ in range(RUNS):
-        parts["count_matches"].append(host_ms(lambda: ac.count_matches(hay64)))
-        t0 = time.perf_counter()
-        buf = np.full(ns * sph.L, st.full.pad_byte, np.uint8)
-        buf[:len(hay64)] = np.frombuffer(hay64, np.uint8)
-        x32 = torch.from_numpy(buf.view(np.int32))
-        t1 = time.perf_counter()
-        xd = x32.to(dev).view(ns, sph.L // 4)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        fl = SK.staged_flags(flo, fhi, fsm, fem, xd, st.halo).reshape(-1)
-        nc, widx, _, live = select_nonzero_words(fl, cap64)
-        cand = torch.where(live, widx, -1)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        cnt, _ = SK.staged_gathered(
-            slo, shi, ssm, sem, st.full.end_limbs,
-            cand.to(torch.int32).reshape(-1, 8, 128), xd, st.halo, 0,
-            len(hay64), False)
-        assert int(cnt.sum()) == len(truth64)
-        t4 = time.perf_counter()
-        for k, a, b in (("pack", t0, t1), ("upload", t1, t2),
-                        ("flags_and_select", t2, t3), ("rescan_sum", t3, t4),
-                        ("sum_of_parts", t0, t4)):
-            parts[k].append((b - a) * 1e3)
-        del buf, x32, xd, fl, cand
-    med = {k: float(np.median(v)) for k, v in parts.items()}
-    log("[e2e parts] staged count_matches 64 MiB, medians of "
-        f"{RUNS}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
-        + f" | {card}")
-    report["staged_count_parts"] = dict(runs_ms=parts, median_ms=med)
+    # the host clock, so the parts add up to their sum. The cap is the one
+    # the call settles on.
+    def staged_parts(name, acs, hay, truth):
+        stp = acs._staged
+        (qlo, qhi, qsm, qem), (rlo, rhi, rsm, rem) = stp._args()
+        L_p, _, tiles_p = stp._layout(len(hay))
+        nsp = tiles_p * 1024
+        capp = max(1024, TB._pow2(nsp // 8))
+        while stp.candidates(stp.prepare(hay), capp)[0] > capp:
+            capp *= 2
+        parts = {k: [] for k in ("count_matches", "sum_of_parts", "pack",
+                                 "upload", "flags_and_select",
+                                 "rescan_sum")}
+        for _ in range(RUNS):
+            parts["count_matches"].append(
+                host_ms(lambda: acs.count_matches(hay)))
+            t0 = time.perf_counter()
+            buf = np.full(nsp * L_p, stp.full.pad_byte, np.uint8)
+            buf[:len(hay)] = np.frombuffer(hay, np.uint8)
+            x32 = torch.from_numpy(buf.view(np.int32))
+            t1 = time.perf_counter()
+            xd = x32.to(dev).view(nsp, L_p // 4)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            fl = SK.staged_flags(qlo, qhi, qsm, qem, xd,
+                                 stp.halo).reshape(-1)
+            nc, widx, _, live = select_nonzero_words(fl, capp)
+            cand = torch.where(live, widx, -1)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            cnt, _ = SK.staged_gathered(
+                rlo, rhi, rsm, rem, stp.full.end_limbs,
+                cand.to(torch.int32).reshape(-1, 8, 128), xd, stp.halo, 0,
+                len(hay), False)
+            assert int(cnt.sum()) == truth
+            t4 = time.perf_counter()
+            for k, a, b in (("pack", t0, t1), ("upload", t1, t2),
+                            ("flags_and_select", t2, t3),
+                            ("rescan_sum", t3, t4),
+                            ("sum_of_parts", t0, t4)):
+                parts[k].append((b - a) * 1e3)
+            del buf, x32, xd, fl, cand
+        med = {k: float(np.median(v)) for k, v in parts.items()}
+        log(f"[e2e parts] {name} staged count_matches 64 MiB (cap {capp}), "
+            f"medians of {RUNS}: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in med.items()) + f" | {card}")
+        return dict(runs_ms=parts, median_ms=med, cap=capp)
+
+    report["staged_count_parts"] = staged_parts("five names", ac, hay64,
+                                                len(truth64))
+    report["w100_count_parts"] = staged_parts("100 words", ac_w, hay_w, n_w)
 
     # The copies the staged call made before G3 and G4 read the upload's
     # rows, which the call no longer makes: the stream-major layout of the
@@ -1786,7 +2024,7 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     share=r["share_of_bound"], library_ms=None,
                     shape=r["name"], threads=r["threads"], P=r["P"],
-                    Ls=r["Ls"])
+                    Ls=r["Ls"], G=r["G"])
     kernels = [
         entry("G1", "bitap_generic_scan", "bitap.cu",
               "ahocorasick_tpu/ops/bitap.py:284", rows["G1"]),
@@ -1801,6 +2039,22 @@ def main() -> int:
         entry("G6", "fp_bitmap (pad-byte padded)", "fingerprint.cu",
               "ahocorasick_tpu/ops/fingerprint.py:434", rows["G6"]),
     ]
+    # The limb groups beyond 64 limbs: G1/G2 (PR 7's rows) and G3/G4.
+    for k, fn, src, line, row in (
+            ("G1", "bitap_generic_scan, limb groups", "bitap.cu",
+             "ahocorasick_tpu/ops/bitap.py:284",
+             "G1 count 64 MiB, K=229, no pad byte"),
+            ("G2", "bitap_baked_scan, limb groups", "bitap.cu",
+             "ahocorasick_tpu/ops/bitap.py:400",
+             "G2 count 64 MiB, K=103 (128 words)"),
+            *((k, f"{fn}, limb groups", "staged.cu", line, name)
+              for (name, _, k, _), fn, line in zip(
+                  STAGED_ROWS,
+                  ("staged_flags", "staged_gathered", "staged_gathered"),
+                  ("ahocorasick_tpu/ops/staged.py:77",
+                   "ahocorasick_tpu/ops/staged.py:152",
+                   "ahocorasick_tpu/ops/staged.py:152")))):
+        kernels.append(entry(k, fn, src, line, rows[row]))
     report["kernels"] = kernels
     report["seconds"] = time.time() - t_start
     os.makedirs("chiprun_out", exist_ok=True)

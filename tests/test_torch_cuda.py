@@ -23,6 +23,7 @@ from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
 from ahocorasick_tpu_torch.ops import staged as TS
 from ahocorasick_tpu_torch.ops import staged_kernels as SK
 from test_torch_limb_sets import SETS as LIMB_GROUP_SETS
+from test_torch_limb_sets import STAGED_SETS as STAGED_GROUP_SETS
 from test_torch_limb_sets import limb_sets
 
 pytestmark = pytest.mark.cuda
@@ -131,9 +132,9 @@ STAGED_SETS = {
     # K = 5 limbs: the 8-limb register bucket with three inert limbs.
     "k5": NAMES + [b"Mycroft Holmes", b"Mrs Hudson", b"Mary Morstan",
                    b"Colonel Moran", b"Baker Street"],
-    # K = 107 limbs for the full set, 105 for the prefixes: the spill path.
-    "spill": [bytes([65 + i % 26, 97 + i // 26]) + b"abcdefghijklmnop"[:i % 7]
-              + b"xyz" for i in range(130)],
+    # K = 107 limbs for the full set, 105 for the prefixes: once the spill
+    # path, now limb groups of 4 lanes.
+    "spill": STAGED_GROUP_SETS["spill"],
 }
 
 
@@ -160,6 +161,7 @@ def test_staged_kernels_equal_plain(dev, name):
     fargs = (flo, fhi, fsm, fem, ph.rows, eng.halo)
     _same([SK.staged_flags(*fargs)], [SK.staged_flags_plain(*fargs)])
     assert SK.flags_plan[1] > 1
+    assert (SK.flags_plan[3] > 1) == (name == "spill")
     ncand, cand = eng.candidates(ph, 4096)
     assert 0 < ncand < 4096 and int(cand[0]) == 0
     sid = cand.to(torch.int32).reshape(-1, 8, 128)
@@ -168,8 +170,8 @@ def test_staged_kernels_equal_plain(dev, name):
             args = (lo, hi, sm, em, eng.full.end_limbs, sid, ph.rows,
                     eng.halo, n0, n1, extract)
             _same(SK.staged_gathered(*args), SK.staged_gathered_plain(*args))
-            _, P, Ls = SK.gathered_plan
-            assert P > 1
+            _, P, Ls, G = SK.gathered_plan
+            assert P > 1 and (G > 1) == (name == "spill")
             if n0:
                 assert n0 % Ls and (n1 % ph.L) % Ls
 
@@ -182,8 +184,9 @@ def test_staged_flags_shapes(dev, n):
     assert (ph.tiles == 1) == (n < 1 << 20)
     fargs = eng._args()[0] + (ph.rows, eng.halo)
     _same([SK.staged_flags(*fargs)], [SK.staged_flags_plain(*fargs)])
-    threads, P, Ls = SK.flags_plan
-    assert P > 1 and threads == ph.tiles * 1024 * P and Ls >= eng.halo
+    threads, P, Ls, G = SK.flags_plan
+    assert P > 1 and G == 1 and threads == ph.tiles * 1024 * P
+    assert Ls >= eng.halo
 
 
 @pytest.mark.parametrize("baked", [False, True], ids=["G5", "G6"])
@@ -459,6 +462,164 @@ def test_padded_limbs(dev, extract):
     fargs = fp._args() + (fph.halo_a, fph.body)
     _same(FK.fp_bitmap_baked(*fargs), FK.fp_bitmap_plain(*fargs, None))
 
+
+
+# ---------------------------------------------------------------------------
+# Limb groups: G3/G4 beyond 64 limbs
+# ---------------------------------------------------------------------------
+# (patterns, table repeats) of each case: the 100 words on the facade's own
+# rows (G = 4: Kf = 75, K = 83), then tables passed straight to the
+# wrappers over rows of random words: k229 (G = 8), k461 (G = 16), k1121
+# (G = 32 lanes of 64 limbs), and tables repeated past what shared memory
+# holds (K = 1,832 and 2,046), which the lanes read from device memory.
+STAGED_GROUP_CASES = {
+    "w100": (STAGED_GROUP_SETS["w100"], 1),
+    "k229": (LIMB_GROUP_SETS["k229"], 1),
+    "k461": (LIMB_GROUP_SETS["k461"], 1),
+    "k1121": (LIMB_GROUP_SETS["k1121"], 1),
+    "k229x8": (LIMB_GROUP_SETS["k229"], 8),
+    "lane_carry_x31": (LIMB_GROUP_SETS["lane_carry"], 31),
+}
+
+
+def _staged_group_rows(dev, pats, ns, L, seed):
+    """Rows [ns, L/4] of random lowercase words that fill the buffer, a
+    pattern every 400 bytes, one across the wrap from the buffer's end into
+    stream 0 and one inside stream 0."""
+    n = ns * L
+    buf = bytearray(_hay(n, seed, pats))
+    rng = np.random.default_rng(seed)
+    for i, pos in enumerate(rng.integers(64, n - 100, n // 400)):
+        p = pats[i % len(pats)]
+        buf[pos:pos + len(p)] = p
+    p = max(pats[:50], key=len)
+    buf[-2:] = p[:2]
+    buf[:len(p) - 2] = p[2:]
+    buf[40:40 + len(pats[1])] = pats[1]
+    x = torch.from_numpy(np.frombuffer(bytes(buf), np.int32).copy())
+    return x.reshape(ns, L // 4).to(dev)
+
+
+def _staged_sid(dev, ns, lanes, live, seed):
+    """Candidate ids [lanes/1024, 8, 128]: stream 0, live - 1 other streams
+    (with repeats where live > ns) and pad lanes (-1) after them, so one
+    warp holds live and pad lanes and the last warps pad lanes only."""
+    rng = np.random.default_rng(seed)
+    sid = np.full(lanes, -1, np.int32)
+    sid[0] = 0
+    sid[1:live] = np.sort(rng.integers(1, ns, live - 1))
+    return torch.from_numpy(sid).reshape(-1, 8, 128).to(dev)
+
+
+def _staged_group_launches(dev, tabs, end_limbs, rows, H, sid):
+    """G3 over the rows and G4 over the candidates (count and extract, the
+    whole buffer and a window whose ends fall inside segments), each
+    against its plain version; returns the two plans."""
+    ftab, tab = tabs
+    fargs = (*ftab, rows, H)
+    _same([SK.staged_flags(*fargs)], [SK.staged_flags_plain(*fargs)])
+    fplan = SK.flags_plan
+    n = 4 * rows.numel()
+    for extract in (False, True):
+        for n0, n1 in ((0, n), (37, n - 45)):
+            a = (*tab, end_limbs, sid, rows, H, n0, n1, extract)
+            _same(SK.staged_gathered(*a), SK.staged_gathered_plain(*a))
+            _, P, Ls, _ = SK.gathered_plan
+            if n0 and P > 1:
+                assert n0 % Ls and n1 % Ls
+    return fplan, SK.gathered_plan
+
+
+def _group_check(plan, K, S, resident):
+    threads, P, Ls, G = plan
+    G_, KR = TK.limb_group(K)
+    assert G == G_ > 1 and threads == S * P * G
+    assert P > 1 or S * G > resident
+
+
+@pytest.mark.parametrize("name", list(STAGED_GROUP_CASES))
+def test_staged_limb_groups_equal_plain(dev, name):
+    """G3 and G4 beyond 64 limbs at every group size, G = 4, 8, 16 and 32
+    (of 64 limbs), and with their tables in device memory, against their
+    plain versions: stream 0 among the candidates (with a match across the
+    wrap into it), pad lanes in a warp with live ones, warps of pad lanes
+    only, windows ending inside segments. Unpadded tables past shared
+    memory are refused."""
+    pats, reps = STAGED_GROUP_CASES[name]
+    res = TK.resident_threads(dev)
+    if name == "w100":
+        eng = TS.StagedEngine(pats, False, dev)
+        hay = bytearray(_hay(4 << 20, 20, pats))
+        hay[:len(pats[0])] = pats[0]
+        ph = eng.prepare(bytes(hay))
+        rows, H, tabs, el = ph.rows, eng.halo, eng._args(), \
+            eng.full.end_limbs
+        assert (eng.fp.k, eng.full.k) == (75, 83)
+        sid = _staged_sid(dev, rows.shape[0], 4096, 1203, 20)
+    else:
+        t = TB.BitapTables(pats, False)
+        lo, hi, sm, em = (x.repeat(reps, *([1] * (x.dim() - 1)))
+                          for x in t.device_tensors(dev))
+        K = lo.shape[0]
+        H = max(TB._pow2(max(t.max_pattern_len - 1, 1)), 4)
+        rows = _staged_group_rows(dev, pats, 2048, 512, K)
+        sid = _staged_sid(dev, 2048, 2048, 1203, K)
+        el = [k for k in range(K) if int(em[k]) != 0]
+        shared = TK.group_tables_shared(K, *TK.limb_group(K),
+                                        SK._group_ring_bytes(
+                                            TK.limb_group(K)[0]))
+        assert shared == (reps == 1)
+        if not shared:
+            with pytest.raises(ValueError, match="allocated"):
+                SK.staged_flags(lo, hi, sm, em, rows, H)
+            lo, hi = TK.padded_tables(lo, hi)
+        tabs = ((lo, hi, sm, em),) * 2
+    flat = sid.reshape(-1)
+    assert int(flat[0]) == 0 and int(flat[-1]) == -1
+    fplan, gplan = _staged_group_launches(dev, tabs, el, rows, H, sid)
+    _group_check(fplan, tabs[0][0].shape[0], rows.shape[0], res)
+    _group_check(gplan, tabs[1][0].shape[0], flat.numel(), res)
+    # One warp holds live and pad lanes (where a warp holds two streams or
+    # more: G < 32).
+    lanes = 32 // gplan[3]
+    last = int((flat >= 0).sum()) - 1
+    assert lanes == 1 or last // lanes == (last + 1) // lanes
+
+
+@pytest.mark.parametrize("K", [461, 1121])
+def test_staged_limb_groups_in_waves(dev, K):
+    """One segment per stream in several waves: S * G past the card's
+    resident thread slots, G3 over that many rows of 64 bytes and G4 over
+    that many candidate lanes (repeated stream ids), against their plain
+    versions."""
+    pats = limb_sets()[K]
+    t = TB.BitapTables(pats, False)
+    tab = t.device_tensors(dev)
+    G, KR = TK.limb_group(K)
+    res = TK.resident_threads(dev)
+    tiles = res // (1024 * G) + 1
+    S = tiles * 1024
+    rows = _staged_group_rows(dev, pats, S, 64, K)
+    sid = _staged_sid(dev, S, S, S - 700, K)
+    H = max(TB._pow2(max(t.max_pattern_len - 1, 1)), 4)
+    fplan, gplan = _staged_group_launches(dev, (tab, tab), t.end_limbs,
+                                          rows, H, sid)
+    for plan in (fplan, gplan):
+        assert plan == (S * G, 1, 64, G) and plan[0] > res
+
+
+def test_facade_staged_count_of_100_words(dev):
+    """The count a user's call takes with the 100 words at 4 MiB: staged,
+    one G3 launch at Kf = 75 and one G4 launch at K = 83, both in limb
+    groups of 4 lanes, equal to the native walk's count."""
+    pats = STAGED_GROUP_SETS["w100"]
+    ac = AhoCorasick(pats, device=dev)
+    truth = AhoCorasick(pats, device="cpu", engine="oracle")
+    hay = _hay(TS.STAGED_MIN, 21, pats)
+    _reset()
+    assert ac.count_matches(hay) == truth.count_matches(hay)
+    assert _counts() == (0, 0, 1, 1, 0, 0)
+    assert SK.flags_plan[3] == SK.gathered_plan[3] == 4
 
 
 # ---------------------------------------------------------------------------

@@ -231,7 +231,7 @@ def test_plan_up_to_64_limbs_is_unchanged():
         for L, H, S in PLAN_SHAPES:
             P, Ls, G, KR = scan_plan(L, H, S, K, RESIDENT_THREADS)
             assert (G, KR) == (1, K)
-            assert (P, Ls) == segment_plan(L, H, S, 4, K, RESIDENT_THREADS)
+            assert (P, Ls) == segment_plan(L, H, S, 4, RESIDENT_THREADS)
     for K in (0, MAX_GROUP_LIMBS + 1):
         with pytest.raises(ValueError):
             limb_group(K)

@@ -44,6 +44,40 @@ def limb_sets():
     return {K: SETS[name] for name, K in K_OF.items()}
 
 
+# The staged route beyond 64 limbs (G3/G4's limb groups). Decollided
+# packing puts about one chain per limb, so a keyword list's 4-byte
+# prefixes need nearly as many limbs as the list: 100 random lowercase
+# words of 8-16 bytes give K = 83 and Kf = 75 (pad byte 0, staged-eligible:
+# the facade's count of 4 MiB or more runs G3 at Kf = 75 and G4 at K = 83);
+# with the 70-byte LONG pattern, past the device-verify window, the
+# extraction takes the staged route too (K = 85, Kf = 76, Ke = 83, halo
+# 128). 130 short names ending in "xyz" give K = 107 and Kf = 105 but are
+# not staged-eligible: their tables go to the wrappers directly.
+LONG = bytes(range(65, 91)) * 2 + b"abcdefghijklmnopqr"
+STAGED_SETS = {
+    "w100": random_words(100, 8, 16, 0),
+    "w100_long": random_words(100, 8, 16, 0) + [LONG],
+    "spill": [bytes([65 + i % 26, 97 + i // 26]) + b"abcdefghijklmnop"[:i % 7]
+              + b"xyz" for i in range(130)],
+}
+# (K, Kf, staged-eligible at 64 MiB) of each staged set.
+STAGED_K = {"w100": (83, 75, True), "w100_long": (85, 76, True),
+            "spill": (107, 105, False)}
+
+
+@pytest.mark.parametrize("name", list(STAGED_SETS))
+def test_staged_set_packs_to_its_limbs(name):
+    """Each staged set packs into the K limbs (its prefixes into the Kf)
+    that STAGED_K gives, and is staged-eligible where it says so."""
+    from ahocorasick_tpu_torch.ops.staged import StagedEngine
+
+    pats = STAGED_SETS[name]
+    eng = StagedEngine(pats, False, "cpu")
+    K, Kf, eligible = STAGED_K[name]
+    assert (eng.full.k, eng.fp.k) == (K, Kf)
+    assert StagedEngine.eligible(pats, 64 << 20) == eligible
+
+
 @pytest.mark.parametrize("name", list(SETS))
 def test_set_packs_to_its_limbs(name):
     """Each set packs into the K limbs its name gives (the lane-crossing

@@ -2,7 +2,9 @@
 
 The Hopper kernels G1/G2 (`csrc/bitap.cu`), G3/G4 (`csrc/staged.cu`) and
 G5/G6 (`csrc/fingerprint.cu`) cut each L-byte stream into P segments of
-Ls = L / P bytes, with the plan from `segment_plan`, and give each
+Ls = L / P bytes, with the plan from `segment_plan` (`scan_plan` for
+G1-G4, which beyond 64 limbs gives each (segment, stream) a limb group of
+G lanes), and give each
 (segment, stream) its own thread: segment 0 warms up over the halo,
 segment j > 0 over the H bytes of the stream before it; only segment 0 of
 stream 0 resets its state after the warm-up (G3/G4: skips it); the G1/G5
@@ -29,10 +31,10 @@ from ahocorasick_tpu_torch.ops import staged as TS
 from ahocorasick_tpu_torch.ops import staged_kernels as SK
 from ahocorasick_tpu_torch.ops.bitap_kernels import (
     MAX_REG_LIMBS,
-    MAX_SPILL_BYTES,
     PlainScan,
     bitap_scan_baked_plain,
     bitap_scan_generic_plain,
+    limb_group,
     or_limbs,
     popcount32,
     scan_plan,
@@ -43,14 +45,15 @@ from ahocorasick_tpu_torch.ops.bitap_kernels import (
 
 NAMES = [b"Sherlock Holmes", b"John Watson", b"Irene Adler",
          b"Inspector Lestrade", b"Professor Moriarty"]
-K65 = [bytes([i]) + b"ab" for i in range(92)]  # 65 limbs: the spill path
+K65 = [bytes([i]) + b"ab" for i in range(92)]  # 65 limbs: a limb group
 # Resident thread slots of an H100 SXM (132 SMs x 2048 threads), which the
 # wrappers read from the card.
 RESIDENT_THREADS = 132 * 2048
 
 
 def plan(L, H, S, align, K):
-    return segment_plan(L, H, S, align, K, RESIDENT_THREADS)
+    """(P, Ls) of a launch over S streams at K limbs."""
+    return scan_plan(L, H, S, K, RESIDENT_THREADS, align)[:2]
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +162,7 @@ PLAN_SHAPES = [
     (2048, 8, 32768, 32, 8),      # 64 MiB dict1k
     (128, 32, 5120, 4, 3),        # 594,915 B
     (2048, 32, 4096, 4, 3),       # an 8 MiB extraction chunk
-    (1024, 4, 1024, 4, 229),      # K = 229: the spill cap (G3/G4 only)
+    (1024, 4, 1024, 4, 229),      # K = 229: limb groups of 8 lanes
     (512, 4, 131072, 4, 1),       # beyond the resident slots already
     (64, 32, 1024, 4, 3),         # L = 2H: two segments of H
     (32, 32, 1024, 32, 1),        # L = H: no room
@@ -169,18 +172,18 @@ PLAN_SHAPES = [
 
 @pytest.mark.parametrize("L,H,S,align,K", PLAN_SHAPES)
 def test_segment_plan_invariants(L, H, S, align, K):
-    P, Ls = plan(L, H, S, align, K)
+    P, Ls, G, KR = scan_plan(L, H, S, K, RESIDENT_THREADS, align)
+    assert (G, KR) == limb_group(K) and (G > 1) == (K > MAX_REG_LIMBS)
     assert P * Ls == L and (L // 4) % P == 0  # P divides Wb
     assert Ls % align == 0
     assert P == 1 or Ls >= H
-    assert P == 1 or S * P <= RESIDENT_THREADS
-    if K > MAX_REG_LIMBS:
-        assert P == 1 or 4 * K * S * P <= MAX_SPILL_BYTES
-    # No larger valid P was left out.
+    assert P == 1 or S * P * G <= RESIDENT_THREADS
+    if G == 1:
+        assert (P, Ls) == segment_plan(L, H, S, align, RESIDENT_THREADS)
+    # No larger valid P was left out: K caps P only through G.
     for Q in range(P + 1, L // align + 1):
         if (L // align) % Q == 0 and L // Q >= H:
-            assert S * Q > RESIDENT_THREADS or (
-                K > MAX_REG_LIMBS and 4 * K * S * Q > MAX_SPILL_BYTES)
+            assert S * G * Q > RESIDENT_THREADS
 
 
 def test_segment_plan_main_path_shapes():
@@ -188,13 +191,13 @@ def test_segment_plan_main_path_shapes():
     assert plan(2048, 8, 32768, 32, 8) == (8, 256)
     assert plan(128, 32, 5120, 4, 3) == (4, 32)
     assert plan(32, 32, 1024, 4, 3) == (1, 32)
-    # K = 229 at 1 MiB: G1 takes limb groups of 8 lanes (scan_plan, no
-    # scratch); G4 at K = 107 over 16,384 lanes keeps its scratch within
-    # MAX_SPILL_BYTES with 4 segments where the slots allow 16.
+    # K = 229 at 1 MiB: G1 takes limb groups of 8 lanes; G4 at K = 107
+    # over 16,384 lanes groups of 4, 65,536 threads per segment: 4
+    # segments fit the slots.
     assert scan_plan(1024, 4, 1024, 229, RESIDENT_THREADS) == (32, 32, 8, 32)
     assert plan(512, 32, 16384, 32, 107) == (4, 128)
     # A card with fewer resident slots gets fewer segments.
-    assert plan(2048, 8, 32768, 32, 8) > segment_plan(2048, 8, 32768, 32, 8,
+    assert plan(2048, 8, 32768, 32, 8) > segment_plan(2048, 8, 32768, 32,
                                                       RESIDENT_THREADS // 2)
     with pytest.raises(ValueError):
         plan(100, 8, 1024, 32, 1)

@@ -25,6 +25,7 @@ import ahocorasick_tpu.ops.staged as JS
 import ahocorasick_tpu_torch.ops.bitap as TB
 import ahocorasick_tpu_torch.ops.staged as TS
 from ahocorasick_tpu_torch.ops import staged_kernels as SK
+from test_torch_limb_sets import STAGED_SETS
 
 PATS = [b"Sherlock Holmes", b"John Watson", b"Irene Adler",
         b"Inspector Lestrade", b"Professor Moriarty"]
@@ -66,10 +67,15 @@ def _case(name):
         for s in (1, 9, 600):
             plant(hay, s * L - 40, pats[-1])
         return pats, bytes(hay), False
+    if name == "w100":
+        # 100 words of 8-16 bytes: Kf = 75 and K = 83 limbs, past the
+        # register bucket of the port's kernels (their limb groups).
+        pats = STAGED_SETS["w100"]
+        return pats, make_hay(L * 1024 + 5, seed=3, pats=pats), False
     raise KeyError(name)
 
 
-CASES = ["names", "case_insensitive", "long_pattern"]
+CASES = ["names", "case_insensitive", "long_pattern", "w100"]
 
 
 def _engines(name):
@@ -116,7 +122,7 @@ def test_tables_and_layouts_equal(name):
 def test_eligibility_equals_jax():
     sets = [PATS, [b"ab", b"cd"], [b"abcdefgh"] * 3, _case("long_pattern")[0],
             [bytes(range(8 * i, 8 * i + 8)) for i in range(32)],
-            [b""], [b"x" * 3000]]
+            [b""], [b"x" * 3000], *STAGED_SETS.values()]
     for pats in sets:
         for n in (1 << 10, TS.STAGED_MIN - 1, TS.STAGED_MIN, 1 << 26):
             for ci in (False, True):
