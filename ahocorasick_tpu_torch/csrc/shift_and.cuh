@@ -447,9 +447,9 @@ inline cudaError_t opt_in_shared(Kernel kernel, size_t bytes,
 
 // Quads of the ring of a limb-group block reading row-major words:
 // kRunRing slots of two quads per column, one column per stream of the
-// block, shared by the stream's G lanes (kOwn: one per lane).
-__host__ __device__ constexpr int group_ring_quads(int G, bool kOwn) {
-  return kRunRing * 2 * (kOwn ? kGroupThreads : kGroupThreads / G);
+// block, shared by the stream's G lanes.
+__host__ __device__ constexpr int group_ring_quads(int G) {
+  return kRunRing * 2 * (kGroupThreads / G);
 }
 
 // walk_run for a limb group (staged.cu beyond 64 limbs). The G lanes of a
@@ -457,31 +457,26 @@ __host__ __device__ constexpr int group_ring_quads(int G, bool kOwn) {
 // group each copy one 16-byte half of a slot, and after its own wait every
 // lane meets the others at __syncwarp, which makes the copies of slot i
 // visible and shows that every lane has read slot i - 1, whose quads the
-// next copy overwrites. With kOwn each lane copies whole slots into a
-// column of its own instead (G times the ring's shared-memory traffic, the
-// same device-memory sectors). Word indices below 0 (the wrapped warm-up
-// of stream 0, whose steps the kernels discard) read word 0 instead. The
-// number of leading words and of slots depends only on w0 % 8 and
-// w1 - w0, which every lane of a warp shares.
-template <bool kOwn, typename W, typename Q>
+// next copy overwrites. (A column per lane, every lane copying whole
+// slots, measured 0.3-3.6% slower; PERF.md.) Word indices below 0 (the
+// wrapped warm-up of stream 0, whose steps the kernels discard) read word
+// 0 instead. The number of leading words and of slots depends only on
+// w0 % 8 and w1 - w0, which every lane of a warp shares.
+template <typename W, typename Q>
 __device__ __forceinline__ void walk_run_group(const uint32_t* x,
                                                long long w0, long long w1,
                                                uint4* ring, int G,
                                                W&& on_word, Q&& on_quad) {
   const long long a = w0 + ((-w0) & (kRunSlot - 1));  // w0 rounded up
   const int slots = static_cast<int>((w1 - a) / kRunSlot);
-  const int cols = kOwn ? kGroupThreads : kGroupThreads / G;
+  const int cols = kGroupThreads / G;
   const int g = threadIdx.x & (G - 1);
-  uint4* mine = ring + (kOwn ? threadIdx.x : threadIdx.x / G);
+  uint4* mine = ring + threadIdx.x / G;
   auto at = [&](long long w) { return x + (w < 0 ? 0 : w); };
   auto fetch = [&](int i) {
-    uint4* d = mine + (i % kRunRing) * 2 * cols;
-    const uint4* src = reinterpret_cast<const uint4*>(at(a + kRunSlot * i));
-    if (kOwn) {
-      cp_async16(d, src);
-      cp_async16(d + cols, src + 1);
-    } else if (g < 2) {
-      cp_async16(d + g * cols, src + g);
+    if (g < 2) {
+      cp_async16(mine + ((i % kRunRing) * 2 + g) * cols,
+                 reinterpret_cast<const uint4*>(at(a + kRunSlot * i)) + g);
     }
   };
 #pragma unroll
@@ -495,7 +490,7 @@ __device__ __forceinline__ void walk_run_group(const uint32_t* x,
     // Commit groups 0 .. i + kRunRing - 2 are issued; waiting until at
     // most kRunRing - 2 are pending completes slot i.
     cp_async_wait<kRunRing - 2>();
-    if (!kOwn) __syncwarp();
+    __syncwarp();
     const int ahead = i + kRunRing - 1;
     if (ahead < slots) fetch(ahead);
     cp_async_commit();

@@ -270,13 +270,12 @@ __global__ void __launch_bounds__(kSegThreads) gathered_kernel(Params p) {
 // Dynamic shared memory of a limb-group block: the ring, then lo and hi,
 // one slice per lane that holds a live limb (if the tables are in shared
 // memory).
-inline size_t group_shmem_bytes(int K, int KR, int G, bool shared_tables,
-                                bool own_ring) {
+inline size_t group_shmem_bytes(int K, int KR, int G, bool shared_tables) {
   const size_t live = (K + KR - 1) / KR;
   const size_t tables =
       shared_tables ? 2 * live * static_cast<size_t>(group_stride(KR, G))
                     : 0;
-  return static_cast<size_t>(group_ring_quads(G, own_ring)) * sizeof(uint4) +
+  return static_cast<size_t>(group_ring_quads(G)) * sizeof(uint4) +
          tables * sizeof(uint32_t);
 }
 
@@ -289,7 +288,7 @@ __device__ __forceinline__ uint32_t quad_word(const uint4& v, int i) {
 // A lane's tables and limb masks: (LO, HI) its slice of the group's tables
 // (slice 0's for a lane past the last live limb), in shared memory past
 // the ring or in device memory.
-template <int KR, bool SHARED_TABLES, bool OWN_RING>
+template <int KR, bool SHARED_TABLES>
 struct GroupLane {
   GroupSegment q;
   const uint32_t* LO;
@@ -304,7 +303,7 @@ struct GroupLane {
     HI = p.hi;
     if constexpr (SHARED_TABLES) {
       uint32_t* tab =
-          reinterpret_cast<uint32_t*>(smem + group_ring_quads(p.G, OWN_RING));
+          reinterpret_cast<uint32_t*>(smem + group_ring_quads(p.G));
       load_group_tables<KR>(p.lo, p.hi, p.K, stride, tab);
       LO = tab;
       HI = tab + (p.K + KR - 1) / KR * stride;
@@ -330,11 +329,11 @@ struct GroupLane {
   }
 };
 
-template <int KR, bool SHARED_TABLES, bool OWN_RING>
+template <int KR, bool SHARED_TABLES>
 __global__ void __launch_bounds__(kGroupThreads) group_flags_kernel(
     Params p) {
   extern __shared__ uint4 gsmem[];  // the ring, then the table slices
-  GroupLane<KR, SHARED_TABLES, OWN_RING> ln;
+  GroupLane<KR, SHARED_TABLES> ln;
   if (!ln.init(p, gsmem)) return;
   const int G = p.G;
   const GroupSegment& q = ln.q;
@@ -348,7 +347,7 @@ __global__ void __launch_bounds__(kGroupThreads) group_flags_kernel(
   // A quad's four words in a loop, not unrolled: a word's 4 * KR limb
   // steps are the unrolled unit, as in bitap.cu (16 * KR at KR = 64 made
   // the build take minutes per instance).
-  walk_run_group<OWN_RING>(p.x, body - p.Hw, body + q.nw, gsmem, G,
+  walk_run_group(p.x, body - p.Hw, body + q.nw, gsmem, G,
                            [&](long long, uint32_t w) { word(w); },
                            [&](long long w, uint4 v) {
                              if (reset_at_body && w == body) {
@@ -366,11 +365,11 @@ __global__ void __launch_bounds__(kGroupThreads) group_flags_kernel(
   }
 }
 
-template <int KR, bool SHARED_TABLES, bool OWN_RING, bool EXTRACT>
+template <int KR, bool SHARED_TABLES, bool EXTRACT>
 __global__ void __launch_bounds__(kGroupThreads) group_gathered_kernel(
     Params p) {
   extern __shared__ uint4 gsmem[];  // the ring, then the table slices
-  GroupLane<KR, SHARED_TABLES, OWN_RING> ln;
+  GroupLane<KR, SHARED_TABLES> ln;
   if (!ln.init(p, gsmem)) return;
   const int G = p.G;
   const GroupSegment& q = ln.q;
@@ -436,7 +435,7 @@ __global__ void __launch_bounds__(kGroupThreads) group_gathered_kernel(
           group_carry<KR>(ln.st, q.g, G));
     }
   };
-  walk_run_group<OWN_RING>(
+  walk_run_group(
       p.x, body - p.Hw, body + q.nw, gsmem, G,
       [&](long long, uint32_t w) { warm(w); },  // leading words: warm-up
       [&](long long w, uint4 v) {
@@ -459,16 +458,14 @@ __global__ void __launch_bounds__(kGroupThreads) group_gathered_kernel(
 
 enum Mode { kFlags, kCount, kExtract };
 
-template <int KR, bool SHARED_TABLES, bool OWN_RING, Mode MODE>
+template <int KR, bool SHARED_TABLES, Mode MODE>
 cudaError_t launch_group(const Params& p, cudaStream_t stream) {
-  const size_t bytes =
-      group_shmem_bytes(p.K, KR, p.G, SHARED_TABLES, OWN_RING);
+  const size_t bytes = group_shmem_bytes(p.K, KR, p.G, SHARED_TABLES);
   void (*kernel)(Params);
   if constexpr (MODE == kFlags) {
-    kernel = group_flags_kernel<KR, SHARED_TABLES, OWN_RING>;
+    kernel = group_flags_kernel<KR, SHARED_TABLES>;
   } else {
-    kernel = group_gathered_kernel<KR, SHARED_TABLES, OWN_RING,
-                                   MODE == kExtract>;
+    kernel = group_gathered_kernel<KR, SHARED_TABLES, MODE == kExtract>;
   }
   static int opted[kMaxDevices] = {};
   const cudaError_t e = opt_in_shared(kernel, bytes, opted);
@@ -483,7 +480,7 @@ cudaError_t launch_group(const Params& p, cudaStream_t stream) {
 // (K <= 64). G > 1: limb groups of G lanes with KR (32 or 64) limbs each.
 template <Mode MODE>
 cudaError_t launch(const Params& p, int KR, bool shared_tables,
-                   bool own_ring, cudaStream_t stream) {
+                   cudaStream_t stream) {
   if (p.G == 1) {
     if constexpr (MODE == kFlags) {
       SHIFT_AND_FOR_BUCKET(
@@ -502,12 +499,11 @@ cudaError_t launch(const Params& p, int KR, bool shared_tables,
   // KR = 32 (K <= 1024) always fits its tables in shared memory; only
   // KR = 64 may not.
   if (KR == 32 && shared_tables) {
-    return own_ring ? launch_group<32, true, true, MODE>(p, stream)
-                    : launch_group<32, true, false, MODE>(p, stream);
+    return launch_group<32, true, MODE>(p, stream);
   }
   if (KR == 64) {
-    return shared_tables ? launch_group<64, true, false, MODE>(p, stream)
-                         : launch_group<64, false, false, MODE>(p, stream);
+    return shared_tables ? launch_group<64, true, MODE>(p, stream)
+                         : launch_group<64, false, MODE>(p, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -538,26 +534,24 @@ extern "C" {
 // G3. x: [ns, Wb] words (Wb a multiple of 8), S = ns streams, P segments
 // per stream, G lanes per stream (1, or a limb group of KR limbs per lane,
 // the tables in shared memory if tables_in_shared, else read from an
-// allocation of whole slices; own_ring: a ring column per lane); flags:
-// [S] int32, zeroed.
+// allocation of whole slices); flags: [S] int32, zeroed.
 int staged_flags(const void* lo, const void* hi, const void* sm,
                  const void* em, int K, const void* x, int Hw, int Wb, int S,
-                 int P, int G, int KR, int tables_in_shared, int own_ring,
-                 void* flags, void* stream) {
+                 int P, int G, int KR, int tables_in_shared, void* flags,
+                 void* stream) {
   const Params p = make_params(lo, hi, sm, em, K, x, Hw, Wb, S, P, G, flags);
   return static_cast<int>(launch<kFlags>(p, KR, tables_in_shared != 0,
-                                         own_ring != 0,
                                          static_cast<cudaStream_t>(stream)));
 }
 
 // G4. sid: [S] int32 stream ids (< ns) or -1; x: [ns, Wb] words; counts:
 // [S] int32, zeroed; words: [tiles, L, Ke, 1024] int32 or null for a
-// count-only scan; P, G, KR, tables_in_shared and own_ring as for G3.
+// count-only scan; P, G, KR and tables_in_shared as for G3.
 int staged_gathered(const void* lo, const void* hi, const void* sm,
                     const void* em, int K, int Ke, const void* sid,
                     const void* x, int Hw, int Wb, int S, int P, int G,
-                    int KR, int tables_in_shared, int own_ring, long long n0,
-                    long long n, void* counts, void* words, void* stream) {
+                    int KR, int tables_in_shared, long long n0, long long n,
+                    void* counts, void* words, void* stream) {
   Params p = make_params(lo, hi, sm, em, K, x, Hw, Wb, S, P, G, counts);
   p.sid = static_cast<const int32_t*>(sid);
   p.words = static_cast<int32_t*>(words);
@@ -566,9 +560,9 @@ int staged_gathered(const void* lo, const void* hi, const void* sm,
   p.n = n;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool shared = tables_in_shared != 0;
-  return static_cast<int>(
-      words != nullptr ? launch<kExtract>(p, KR, shared, own_ring != 0, st)
-                       : launch<kCount>(p, KR, shared, own_ring != 0, st));
+  return static_cast<int>(words != nullptr
+                              ? launch<kExtract>(p, KR, shared, st)
+                              : launch<kCount>(p, KR, shared, st));
 }
 
 }  // extern "C"

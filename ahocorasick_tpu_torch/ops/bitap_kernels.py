@@ -156,7 +156,7 @@ def segment_plan(L: int, H: int, S: int, align: int,
 
 
 def limb_group(K: int) -> Tuple[int, int]:
-    """(G, KR) of G1/G2 for K limbs: G lanes per stream, KR limbs held in
+    """(G, KR) of G1-G4 for K limbs: G lanes per stream, KR limbs held in
     registers by each. K <= MAX_REG_LIMBS: one lane holds all K (in the
     kernel's register bucket). Beyond: a limb group, KR = 32 (64 past
     32 x 32 limbs) and G the least power of two with G * KR >= K. From K
@@ -213,7 +213,8 @@ def launch(dev: torch.device, fn, name: str, *args) -> None:
 def padded_tables(lo, hi):
     """(lo, hi) [K, 16] as G1-G4 read them: views of allocations padded
     with zero limbs to whole slices of the limb group (``limb_group``),
-    since where a group's tables stay in device memory (K > 1,728) the last
+    since where a group's tables stay in device memory (past K = 1,728 for
+    G1/G2, 1,792 for G3/G4: ``group_tables_shared``) the last
     live lane reads rows past limb K - 1 up to its slice's end. Those rows
     feed only limbs with zero masks. The tables' owner pads once
     (``BitapTables.device_tensors``); for K <= 64 and beyond

@@ -59,23 +59,19 @@ gathered_plan: Optional[Tuple[int, int, int, int]] = None
 SEGMENT_ALIGN = 32
 # Slots per ring column of the row-major ring (kRunRing).
 RUN_RING = 3
-# Whether a limb group's lanes each keep a ring column of their own (else
-# the G lanes of a stream share one).
-GROUP_OWN_RING = False
 
 LIBRARY = _build.CudaLibrary("staged.cu", {
-    "staged_flags": (P, P, P, P, I, P, I, I, I, I, I, I, I, I, P, P),
-    "staged_gathered": (P, P, P, P, I, I, P, P, I, I, I, I, I, I, I, I, LL,
-                        LL, P, P, P),
+    "staged_flags": (P, P, P, P, I, P, I, I, I, I, I, I, I, P, P),
+    "staged_gathered": (P, P, P, P, I, I, P, P, I, I, I, I, I, I, I, LL, LL,
+                        P, P, P),
 })
 
 
 def _group_ring_bytes(G: int) -> int:
     """Shared-memory bytes of a limb-group block's ring (group_ring_quads
-    in csrc/shift_and.cuh): RUN_RING slots of 32 bytes per column, a
-    column per stream of the block (per lane with GROUP_OWN_RING)."""
-    return RUN_RING * 32 * (GROUP_THREADS if GROUP_OWN_RING
-                            else GROUP_THREADS // G)
+    in csrc/shift_and.cuh): RUN_RING slots of 32 bytes per column, one
+    column per stream of the block."""
+    return RUN_RING * 32 * (GROUP_THREADS // G)
 
 
 def _plan(lo, hi, K: int, Wb: int, H: int, S: int, dev):
@@ -139,7 +135,7 @@ def staged_flags(lo, hi, sm, em, rows, H: int) -> torch.Tensor:
     launch(dev, lib.staged_flags, "staged_flags",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K,
            rows.data_ptr(), Hw, Wb, ns, nseg, G, KR, shared,
-           int(GROUP_OWN_RING), flags.data_ptr())
+           flags.data_ptr())
     flags_launches += 1
     flags_plan = (ns * nseg * G, nseg, Ls, G)
     return flags
@@ -204,7 +200,7 @@ def staged_gathered(lo, hi, sm, em, end_limbs: Sequence[int], sid, rows,
     launch(dev, lib.staged_gathered, "staged_gathered",
            lo.data_ptr(), hi.data_ptr(), sm.data_ptr(), em.data_ptr(), K, Ke,
            sid.data_ptr(), rows.data_ptr(), Hw, Wb, S, nseg, G, KR, shared,
-           int(GROUP_OWN_RING), n0, n, counts.data_ptr(), ptr(words))
+           n0, n, counts.data_ptr(), ptr(words))
     gathered_launches += 1
     gathered_plan = (S * nseg * G, nseg, Ls, G)
     return counts, words

@@ -98,7 +98,7 @@ facade call; kernel-vs-plain launches are not counted):
 Exits non-zero without the final line when no CUDA device is present or
 anything fails. Details go to chiprun_out/chip_smoke.json.
 
-    python3 chip_smoke.py --limb-rows [--port-root DIR] [--own-ring]
+    python3 chip_smoke.py --limb-rows [--port-root DIR]
 
 builds csrc/bitap.cu and csrc/staged.cu alone and prints the times of the
 LIMB_ROWS and STAGED_ROWS launches (G1-G4 beyond 64 limbs) and of the
@@ -783,8 +783,6 @@ def limb_rows_main(args) -> int:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
-    if args.own_ring:
-        SK.GROUP_OWN_RING = True
     kind, card, sm_hz = card_rates()
     built = build_all((TK.LIBRARY, SK.LIBRARY))
     log(f"[limb rows] {os.path.dirname(TK.__file__)}: " + ", ".join(
@@ -803,7 +801,7 @@ def limb_rows_main(args) -> int:
         got, want = fns[0](*a), fns[1](*a)
         max_abs_err(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,))
-    log(f"[limb rows] every launch = plain (own ring: {args.own_ring})")
+    log("[limb rows] every launch = plain")
     rows = time_limb_rows(TK, layouts, sm_hz, card, with_plain=False)
     srows = time_staged_rows(SK, slayouts, sm_hz, card, with_plain=False)
     # The facade's 64 MiB counts of the 128 words (one G2 launch) and of
@@ -818,7 +816,6 @@ def limb_rows_main(args) -> int:
     w_ms, w_traced = e2e_call("100 words (Kf=75, K=83) count_matches 64 MiB",
                               lambda: ac_w.count_matches(hay_w), card)
     print(json.dumps({"limb_rows": rows, "staged_rows": srows,
-                      "own_ring": args.own_ring,
                       "k103_count_ms": call_ms, "k103_count_trace": traced,
                       "w100_count_ms": w_ms, "w100_count_trace": w_traced,
                       "port": os.path.dirname(TK.__file__), "card": card,
@@ -832,9 +829,6 @@ def main() -> int:
     ap.add_argument("--limb-rows", action="store_true",
                     help="time only the K > 64 rows of G1-G4 and two "
                     "facade counts, and print them as one JSON line")
-    ap.add_argument("--own-ring", action="store_true",
-                    help="with --limb-rows: the staged limb groups with a "
-                    "ring column per lane (else one per stream)")
     ap.add_argument("--port-root", default=None,
                     help="with --limb-rows: the directory holding the "
                     "ahocorasick_tpu_torch to time (another tree's "
@@ -935,19 +929,18 @@ def main() -> int:
     # The limb groups (K > 64): the growth from KR = 32 to KR = 64 gives
     # what a limb costs; the whole loop of KR = 32 over its byte steps and
     # 32 limbs counts the per-byte work too (the shuffle once per byte).
-    # G3/G4's limb groups are read on their shared-table, shared-ring
-    # instances, the ones the staged rows launch.
+    # G3/G4's limb groups are read on their shared-table instances, the
+    # ones the staged rows launch.
     sass_of[SK.LIBRARY.stem] = subprocess.run(
         [cuobjdump, "-sass", SK.LIBRARY.path], capture_output=True,
         text=True, timeout=300, check=True).stdout
     for name, lib, kernel in (
             ("G1 count", TK.LIBRARY, "group_kernelILi%dELb0ELb0ELb1E"),
             ("G2 count", TK.LIBRARY, "group_kernelILi%dELb1ELb0ELb1E"),
-            ("G3 flags", SK.LIBRARY, "group_flags_kernelILi%dELb1ELb0E"),
-            ("G4 count", SK.LIBRARY,
-             "group_gathered_kernelILi%dELb1ELb0ELb0E"),
+            ("G3 flags", SK.LIBRARY, "group_flags_kernelILi%dELb1EE"),
+            ("G4 count", SK.LIBRARY, "group_gathered_kernelILi%dELb1ELb0EE"),
             ("G4 extract", SK.LIBRARY,
-             "group_gathered_kernelILi%dELb1ELb0ELb1E")):
+             "group_gathered_kernelILi%dELb1ELb1EE")):
         growth, _ = step_issue(sass_of[lib.stem], kernel, 32, 64)
         loop = word_loop(sass_of[lib.stem], kernel % 32)
         steps = round(loop.get("LDS", 0) / (2 * 32))
@@ -1283,21 +1276,25 @@ def main() -> int:
     ssets = staged_sets()
     slayouts = staged_layouts(TS, dev, args.seed)
     w100, w100_long = ssets["w100"], ssets["w100_long"]
-    hay_w = slayouts["count"][3]
-    n_w = len(host_pairs(w100, hay_w))
-    ac_w = AhoCorasick(w100, device=dev)
+    hay_w100 = slayouts["count"][3]
+    n_w100 = len(host_pairs(w100, hay_w100))
+    ac_w100 = AhoCorasick(w100, device=dev)
     all_launches = tuple(range(16))
-    (got, c), held = drive_held(lambda: ac_w.count_matches(hay_w),
+    (got, c), held = drive_held(lambda: ac_w100.count_matches(hay_w100),
                                 ["G3", "G4"], all_launches)
-    check("100 words staged count 64 MiB", got, n_w)
+    check("100 words staged count 64 MiB", got, n_w100)
     w_plans = (SK.flags_plan, SK.gathered_plan)
-    st_w = ac_w._staged
-    assert (st_w.fp.k, st_w.full.k) == (75, 83), (st_w.fp.k, st_w.full.k)
-    assert c["G3"] == c["G4"] == 1 and w_plans[0][3] == w_plans[1][3] == 4, (
-        c, w_plans)
+    st_w100 = ac_w100._staged
+    assert (st_w100.fp.k, st_w100.full.k) == (75, 83), (st_w100.fp.k,
+                                                        st_w100.full.k)
+    # G3 runs once per candidate cap the count tries: the first cap is an
+    # eighth of the streams, and more flagged streams than that grow it.
+    assert c["G3"] >= 1 and c["G4"] == 1, c
+    assert w_plans[0][3] == w_plans[1][3] == 4, w_plans
     log(f"[staged groups] 100 words count 64 MiB: {got} matches = host "
-        f"truth; launches G3 {c['G3']} G4 {c['G4']}; Kf={st_w.fp.k} "
-        f"K={st_w.full.k}; G3 {w_plans[0][0]} threads, P={w_plans[0][1]} x "
+        f"truth; launches G3 {c['G3']} G4 {c['G4']} (cap "
+        f"{slayouts['count'][2].numel()}); Kf={st_w100.fp.k} "
+        f"K={st_w100.full.k}; G3 {w_plans[0][0]} threads, P={w_plans[0][1]} x "
         f"Ls={w_plans[0][2]} B, G={w_plans[0][3]}; G4 {w_plans[1][0]} "
         f"threads, P={w_plans[1][1]} x Ls={w_plans[1][2]} B, "
         f"G={w_plans[1][3]}; kernel = plain at launches {held}")
@@ -1810,7 +1807,8 @@ def main() -> int:
         e2e("128 words (K=103) count_matches 64 MiB (G2 limb groups)",
             len(hay_k103), lambda: ac_k103.count_matches(hay_k103)),
         e2e("100 words (Kf=75, K=83) count_matches 64 MiB (staged: G3, G4 "
-            "limb groups)", len(hay_w), lambda: ac_w.count_matches(hay_w)),
+            "limb groups)", len(hay_w100),
+            lambda: ac_w100.count_matches(hay_w100)),
         e2e("100 words + LONG find_overlapping_iter 16 MiB (staged: G3, G4 "
             "limb groups)", len(hay_wl),
             lambda: list(ac_wl.find_overlapping_iter(hay_wl))),
@@ -1860,18 +1858,17 @@ def main() -> int:
     # The 64 MiB staged counts' steps (the five names; the 100 words,
     # whose kernels run limb groups), RUNS times, each run beside a whole
     # count_matches call: the host pack, the pageable upload (its rows are
-    # what G3 and G4 read), G3 with the candidate compaction, G4 over the
-    # candidates' rows and the sum, each ended by a synchronise and read on
-    # the host clock, so the parts add up to their sum. The cap is the one
-    # the call settles on.
+    # what G3 and G4 read), G3 with the candidate compaction (again at a
+    # larger cap where the candidates overflow the first, as the call
+    # does), G4 over the candidates' rows and the sum, each ended by a
+    # synchronise and read on the host clock, so the parts add up to their
+    # sum.
     def staged_parts(name, acs, hay, truth):
         stp = acs._staged
         (qlo, qhi, qsm, qem), (rlo, rhi, rsm, rem) = stp._args()
         L_p, _, tiles_p = stp._layout(len(hay))
         nsp = tiles_p * 1024
-        capp = max(1024, TB._pow2(nsp // 8))
-        while stp.candidates(stp.prepare(hay), capp)[0] > capp:
-            capp *= 2
+        cap0 = max(1024, TB._pow2(nsp // 8))
         parts = {k: [] for k in ("count_matches", "sum_of_parts", "pack",
                                  "upload", "flags_and_select",
                                  "rescan_sum")}
@@ -1886,9 +1883,15 @@ def main() -> int:
             xd = x32.to(dev).view(nsp, L_p // 4)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            fl = SK.staged_flags(qlo, qhi, qsm, qem, xd,
-                                 stp.halo).reshape(-1)
-            nc, widx, _, live = select_nonzero_words(fl, capp)
+            capp, tries = cap0, 0
+            while True:
+                fl = SK.staged_flags(qlo, qhi, qsm, qem, xd,
+                                     stp.halo).reshape(-1)
+                nc, widx, _, live = select_nonzero_words(fl, capp)
+                tries += 1
+                if nc <= capp:
+                    break
+                capp = max(capp * 2, TB._pow2(nc))
             cand = torch.where(live, widx, -1)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
@@ -1905,14 +1908,15 @@ def main() -> int:
                 parts[k].append((b - a) * 1e3)
             del buf, x32, xd, fl, cand
         med = {k: float(np.median(v)) for k, v in parts.items()}
-        log(f"[e2e parts] {name} staged count_matches 64 MiB (cap {capp}), "
-            f"medians of {RUNS}: " + ", ".join(
+        log(f"[e2e parts] {name} staged count_matches 64 MiB (G3 at {tries} "
+            f"caps, the last {capp}), medians of {RUNS}: " + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in med.items()) + f" | {card}")
-        return dict(runs_ms=parts, median_ms=med, cap=capp)
+        return dict(runs_ms=parts, median_ms=med, cap=capp, flag_passes=tries)
 
     report["staged_count_parts"] = staged_parts("five names", ac, hay64,
                                                 len(truth64))
-    report["w100_count_parts"] = staged_parts("100 words", ac_w, hay_w, n_w)
+    report["w100_count_parts"] = staged_parts("100 words", ac_w100,
+                                              hay_w100, n_w100)
 
     # The copies the staged call made before G3 and G4 read the upload's
     # rows, which the call no longer makes: the stream-major layout of the
@@ -2039,7 +2043,7 @@ def main() -> int:
         entry("G6", "fp_bitmap (pad-byte padded)", "fingerprint.cu",
               "ahocorasick_tpu/ops/fingerprint.py:434", rows["G6"]),
     ]
-    # The limb groups beyond 64 limbs: G1/G2 (PR 7's rows) and G3/G4.
+    # The limb-group rows beyond 64 limbs, G1-G4.
     for k, fn, src, line, row in (
             ("G1", "bitap_generic_scan, limb groups", "bitap.cu",
              "ahocorasick_tpu/ops/bitap.py:284",

@@ -483,18 +483,19 @@ STAGED_GROUP_CASES = {
 
 
 def _staged_group_rows(dev, pats, ns, L, seed):
-    """Rows [ns, L/4] of random lowercase words that fill the buffer, a
-    pattern every 400 bytes, one across the wrap from the buffer's end into
-    stream 0 and one inside stream 0."""
+    """Rows [ns, L/4] of random bytes that fill the buffer, a pattern
+    every 400 bytes, the longest one across the wrap from the buffer's end
+    into stream 0 and one inside stream 0."""
     n = ns * L
     buf = bytearray(_hay(n, seed, pats))
     rng = np.random.default_rng(seed)
     for i, pos in enumerate(rng.integers(64, n - 100, n // 400)):
         p = pats[i % len(pats)]
         buf[pos:pos + len(p)] = p
-    p = max(pats[:50], key=len)
-    buf[-2:] = p[:2]
-    buf[:len(p) - 2] = p[2:]
+    p = max(pats, key=len)
+    k = len(p) // 2
+    buf[n - k:n] = p[:k]
+    buf[:len(p) - k] = p[k:]
     buf[40:40 + len(pats[1])] = pats[1]
     x = torch.from_numpy(np.frombuffer(bytes(buf), np.int32).copy())
     return x.reshape(ns, L // 4).to(dev)
