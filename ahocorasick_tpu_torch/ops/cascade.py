@@ -41,10 +41,13 @@ total size fits its limb budget; the two match sets merge in report order.
 The output is the complete overlapping (pattern, end) set in the
 reference's report order, the contract of ``BitapEngine.match_pairs``.
 
-Stages 2 and 3 are PyTorch code on tensors (the JAX package's are ``jnp``,
-not Pallas). Three host reads per pass: the candidate count (inside
-``_rank_select``), then the expansion rows and the match total together,
-and in extract mode the selection's count.
+After the bitmap, a pass runs the hand-written kernels of
+``candidate_kernels`` (the JAX package's stages are ``jnp`` that XLA fuses
+with the bitmap kernel into one dispatch): S1 selects the candidates, S3
+probes the classes, and S4 expands and verifies the LONG groups over the
+``torch.cumsum`` of S3's group sizes. The pass then reads its scalars (the
+candidate count, the expansion rows and the match totals) from the card
+once, together; in extract mode the selection of the matches follows.
 """
 
 from __future__ import annotations
@@ -56,17 +59,14 @@ import numpy as np
 import torch
 
 from ..utils import log
+from . import candidate_kernels as _ck
 from . import fingerprint_kernels as _kernels
 from .bitap import LANES, BitapEngine, _layout_search, _pow2, _to_stream_major
-from .compaction import select_nonzero_words
+from .candidate_kernels import FP_LEN, KEY_LEN, LONG
+from .compaction import select_matches
 from .fingerprint import (
-    FP_LEN,
     FingerprintTables,
-    _M32,
     _fold,
-    _gather_windows,
-    _mul32,
-    _rank_select,
     _verify_buffer,
     plan_buckets,
     strong_pad_byte,
@@ -77,8 +77,6 @@ Q_COARSE = 4            # MINIMUM coarse prefix bytes (min(Q, len) per pattern).
 # length-stratified dictionaries hit far fewer text positions with 8-byte
 # prefixes than with 4-byte ones, at the same limb budget.
 W_CASCADE = 64          # max pattern length handled on-device
-LONG = 0                # class id for patterns longer than KEY_LEN bytes
-KEY_LEN = 8             # exact-key bytes (two 32-bit words)
 # Coarse plan ladder: limb budgets; escalation refines prefix buckets.
 CASCADE_LEVELS = (10, 16, 24, 32)
 # Candidate / expansion hostility bounds (fractions of n), the JAX
@@ -334,148 +332,32 @@ class CascadeTables:
 
 
 # ---------------------------------------------------------------------------
-# Device stages
+# The stages after the candidate selection
 # ---------------------------------------------------------------------------
-def _class_key(wnd: torch.Tensor, c: int, Q: int):
-    """(lo, hi) key words of the class-c window slice, as int64 values in
-    [0, 2^32) (the JAX package builds the same bits in int32).
-
-    The window is anchored at e_pos - (FP_LEN - 1); a class-c pattern
-    (coarse prefix q = min(Q, c)) starts at column FP_LEN - q, so its
-    key bytes occupy columns FP_LEN - q .. FP_LEN - q + min(c, 8) - 1.
-    """
-    q = _qlen(c, Q) if c != LONG else Q
-    kb = min(c, KEY_LEN) if c != LONG else KEY_LEN
-    col0 = FP_LEN - q
-    w = wnd[:, col0:col0 + kb].to(torch.int64)
-    lo = torch.zeros(wnd.shape[0], dtype=torch.int64, device=wnd.device)
-    for j in range(min(kb, 4)):
-        lo = (lo << 8) | w[:, j]
-    hi = torch.zeros_like(lo)
-    for j in range(4, kb):
-        hi = (hi << 8) | w[:, j]
-    return lo, hi
-
-
-def _probe(dv, c: int, wnd, e_pos, live, n: int, Q: int):
-    """One class probe: 2 record row gathers + key compares.
-
-    Returns (hit, rec, sp) where rec is the winning [C, 4] record and sp
-    the candidate pattern-start position for this class."""
-    (a1, a2, b1, b2), logT, trec = dv["classes"][c]
-    lo, hi = _class_key(wnd, c, Q)
-    q = _qlen(c, Q) if c != LONG else Q
-    kb = min(c, KEY_LEN) if c != LONG else KEY_LEN
-    sp = e_pos - (q - 1)
-    sh = 32 - logT
-    s1 = ((_mul32(lo, a1) + _mul32(hi, a2)) & _M32) >> sh
-    s2 = ((_mul32(lo, b1) + _mul32(hi, b2)) & _M32) >> sh
-    r1 = trec[s1]
-    r2 = trec[s2]
-    # A slot matches only when its key equals AND it is occupied
-    # (count > 0): empty slots carry key (-1, -1), which an all-0xFF
-    # window CAN produce — without the occupancy test such a window
-    # would both fake-hit empty slots and shadow a real all-0xFF
-    # pattern sitting in the other slot.
-    h1 = (r1[:, 0] == lo) & (r1[:, 1] == hi) & (r1[:, 3] > 0)
-    h2 = (r2[:, 0] == lo) & (r2[:, 1] == hi) & (r2[:, 3] > 0)
-    rec = torch.where(h1[:, None], r1, r2)
-    valid = live & (sp >= 0) & (sp + kb <= n)
-    return (h1 | h2) & valid, rec, sp
-
-
-def _expand_gid(counts: torch.Tensor, cap_e: int):
-    """Vectorized CSR expansion: group id per output row.
-
-    counts [ng] -> (total, gid[cap_e], resid[cap_e], live[cap_e]); total
-    is a 0-d tensor and counts every row, also those past cap_e. Row j <
-    total belongs to the group whose [start, end) holds j (zero-count
-    groups hold none), found by a binary search of the inclusive cumsum;
-    rows past the total get group 0 and are not live."""
-    ends = torch.cumsum(counts, 0)
-    total = ends[-1]
-    starts = ends - counts
-    j = torch.arange(cap_e, dtype=ends.dtype, device=ends.device)
-    live = j < total
-    gid = torch.where(live, torch.searchsorted(ends, j, right=True), 0)
-    resid = j - starts[gid]
-    return total, gid, resid, live
-
-
-def _pack_words(wnd: torch.Tensor) -> torch.Tensor:
-    """[C, W] uint8 windows -> [C, W/4] int32, little-endian (the numpy
-    '<i4' view layout of the host-side pv records)."""
-    return wnd.contiguous().view(torch.int32)
-
-
-def _probe_exact(e_pos, live, wnd, n: int, dv, Q: int):
-    """Stage 2 over the exact classes (ascending): (match total as a 0-d
-    tensor, [(hit, pid, end)] per class)."""
-    total = torch.zeros((), dtype=torch.int64, device=wnd.device)
-    parts = []
-    for c in sorted(k for k in dv["classes"] if k != LONG):
-        hit, rec, sp = _probe(dv, c, wnd, e_pos, live, n, Q)
-        total = total + torch.where(hit, rec[:, 3], 0).sum()
-        parts.append((hit, rec[:, 2], sp + c))
-    return total, parts
-
-
-def _expand_long(e_pos, live, wnd, n: int, dv, cap_e: int, Q: int,
-                 tail_w0: int):
-    """Stage 3: the LONG probe, its CSR expansion into at most cap_e
-    compare rows and their tail verify. Returns (expansion rows, all of
-    them, and (ok, pid, end) of the first cap_e), or None without a LONG
-    class."""
-    if LONG not in dv["classes"]:
-        return None
-    hit, rec, sp = _probe(dv, LONG, wnd, e_pos, live, n, Q)
-    counts = torch.where(hit, rec[:, 3], 0)
-    total_e, gid, resid, live_e = _expand_gid(counts, cap_e)
-    pidx = torch.where(live_e, rec[gid, 2] + resid, 0)
-    pid = dv["pidarr"][pidx]
-    sp_e = sp[gid]
-    wrow = _pack_words(wnd[gid])                     # [cap_e, Ww]
-    pvrow = dv["pv"][pid]                            # [cap_e, 2Ww+1]
-    Ww = wrow.shape[1]
-    pw = pvrow[:, tail_w0:Ww]
-    pm = pvrow[:, Ww + tail_w0:2 * Ww]
-    plen = pvrow[:, 2 * Ww].to(torch.int64)
-    eq = ((wrow[:, tail_w0:] & pm) == pw).all(dim=1)
-    ok = live_e & eq & (sp_e >= 0) & (sp_e + plen <= n)
-    return total_e, (ok, pid, sp_e + plen)
-
-
-def _probe_expand_verify(e_pos, live, wnd, n: int, dv, extract: bool,
-                         cap_e: int, cap_m: int, Q: int, tail_w0: int):
-    """Stages 2+3 over gathered windows.
-
-    Returns (long_expanded, total[, out_pid, out_end]): 0-d tensors, and
-    in extract mode the first cap_m matches as [cap_m] pid and end
-    tensors, -1 past the total (exact classes ascending, then LONG)."""
-    total, parts = _probe_exact(e_pos, live, wnd, n, dv, Q)
-    total_e = torch.zeros((), dtype=torch.int64, device=wnd.device)
-    long = _expand_long(e_pos, live, wnd, n, dv, cap_e, Q, tail_w0)
+def verify_candidates(u8f, e_pos, live, n: int, t: "CascadeTables", dv,
+                      cap_e: int, extract: bool):
+    """S3, the cumsum and S4 over the candidates (e_pos, live) of the verify
+    buffer ``u8f``: (total, total_e, flags). ``total`` (0-d int64) counts
+    the matches of the exact classes and the LONG rows, ``total_e`` (0-d
+    int64) the LONG expansion rows, also those past cap_e (0 without a LONG
+    class); in extract mode ``flags`` = (ok, pid, end), the flat slots of
+    the exact classes (ascending), then the first cap_e LONG rows, else
+    None."""
+    ok, pid, end, total, long = _ck.cascade_probe(
+        u8f, e_pos, live, n, dv["classes"], t.q, t.W, extract)
+    parts = [] if ok is None else [(ok.reshape(-1), pid.reshape(-1),
+                                    end.reshape(-1))]
+    total_e = torch.zeros_like(total)
     if long is not None:
-        total_e, (ok, pid, end) = long
-        total = total + ok.sum()
-        parts.append((ok, pid, end))
+        lok, lpid, lend, ltotal, total_e = _ck.cascade_long_verify(
+            *long, e_pos, u8f, dv["pidarr"], dv["pv"], n, cap_e, t.tail_w0,
+            t.W, extract)
+        total = total + ltotal
+        if extract:
+            parts.append((lok, lpid, lend))
     if not extract:
-        return total_e, total
-    return (total_e, total) + _select_matches(parts, cap_m)
-
-
-def _select_matches(parts, cap_m: int):
-    """The first cap_m matches of the (ok, pid, end) parts in their
-    concatenation order, as [cap_m] pid and end tensors, -1 past the
-    count."""
-    okc = torch.cat([p[0] for p in parts]).to(torch.int32)
-    pidc = torch.cat([p[1] for p in parts])
-    endc = torch.cat([p[2] for p in parts])
-    _, mi, _, mlive = select_nonzero_words(okc, cap_m)
-    mi = mi.clamp(max=okc.numel() - 1)  # past the count mi is the size
-    out_pid = torch.where(mlive, pidc[mi], -1)
-    out_end = torch.where(mlive, endc[mi], -1)
-    return out_pid, out_end
+        return total, total_e, None
+    return total, total_e, tuple(torch.cat(col) for col in zip(*parts))
 
 
 # ---------------------------------------------------------------------------
@@ -647,29 +529,30 @@ class CascadeEngine:
         while True:
             t = self.tables
             dv = t.device_tensors(self.device)
+            # One pass: the bitmap, S1, S3, the cumsum and S4, then one
+            # read of the scalars.
             _, bmp = self._bitmap(ph, dv["coarse"])
-            ncand, e_pos, live = _rank_select(bmp, L, cap_c)
-            wnd = _gather_windows(ph.u8f, e_pos, t.W)
-            out = _probe_expand_verify(e_pos, live, wnd, n, dv, extract,
-                                       cap_e, cap_m, t.q, t.tail_w0)
-            ne, total = torch.stack(out[:2]).tolist()
+            ncand, e_pos, live = _ck.cand_select(bmp, L, cap_c)
+            total, total_e, flags = verify_candidates(
+                ph.u8f, e_pos, live, n, t, dv, cap_e, extract)
+            ncand, total, ne = torch.stack([ncand, total, total_e]).tolist()
             if ((ncand > cand_lim or ne > exp_lim)
                     and self._escalate()):
                 continue
             if ncand > cand_lim or ne > exp_lim:
                 self.hostile = True
                 return None
-            ok = True
+            settled = True
             if ncand > cap_c:
                 cap_c = _pow2(ncand)
-                ok = False
+                settled = False
             if ne > cap_e:
                 cap_e = _pow2(ne)
-                ok = False
+                settled = False
             if extract and total > cap_m:
                 cap_m = _pow2(total)
-                ok = False
-            if ok:
+                settled = False
+            if settled:
                 break
         self._caps["c"] = max(self._caps.get("c", 0), cap_c)
         self._caps["e"] = max(self._caps.get("e", 0), cap_e)
@@ -678,7 +561,7 @@ class CascadeEngine:
         self.last_caps = (cap_c, cap_e, cap_m if extract else None)
         if not extract:
             return total
-        return self._host_pairs(out[2], out[3])
+        return self._host_pairs(*select_matches(*flags, cap_m))
 
     def _host_pairs(self, out_pid: torch.Tensor, out_end: torch.Tensor):
         """The device's selected (pid, end) slots as full pattern-set

@@ -7,6 +7,10 @@ because `jnp.nonzero` lowers badly on a TPU; on the card and on the CPU
 first `cap` nonzero words (set bits) in index order, a `live` mask, and
 word indices filled with the array size past the count (what the JAX
 bitap engine applies after the call, `jnp.where(live, widx, size)`).
+`select_set_bits` is the plain version of kernel S1
+(`candidate_kernels.cand_select`), which the fingerprint and cascade
+engines run on the card; `select_matches` compacts the verify stages'
+match slots.
 """
 
 from __future__ import annotations
@@ -73,3 +77,15 @@ def select_set_bits(
         bit[:k] = col[:k]
     live = torch.arange(cap, device=dev) < count
     return count, widx, bit, live
+
+
+def select_matches(ok: torch.Tensor, pid: torch.Tensor, end: torch.Tensor,
+                   cap_m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``cap_m`` set slots of the 1-D flags ``ok`` as [cap_m]
+    int64 (pid, end) gathered from the slot arrays beside it, -1 past the
+    count (the verify stages' compaction, ``select_nonzero_words``)."""
+    _, mi, _, mlive = select_nonzero_words(ok.to(torch.int32), cap_m)
+    mi = mi.clamp(max=ok.numel() - 1)  # past the count mi is the size
+    out_pid = torch.where(mlive, pid[mi].to(torch.int64), -1)
+    out_end = torch.where(mlive, end[mi], -1)
+    return out_pid, out_end

@@ -13,14 +13,15 @@ order included, so both packages build the same tables.
   2. *Candidate bitmap.* Kernel G5 (table-generic, position-masked) or G6
      (strong-pad-byte padded, unmasked), ``fingerprint_kernels``, emits one
      bit per haystack position ("some bucket's fingerprint ends here"),
-     n/8 bytes of output regardless of K. ``select_set_bits`` turns the
-     first ``cap`` set bits into positions (``_rank_select``).
-  3. *Exact verification.* On the device (``DeviceVerify``,
-     ``_device_verify``): each candidate takes a W-byte window of the
-     folded haystack (one index gather), per length class its fingerprint
-     bytes hash into a cuckoo table whose slot holds the whole pattern
-     group as one packed row, one row gather fetches it, and full-pattern
-     byte compares confirm. Hash collisions and filter false positives cost
+     n/8 bytes of output regardless of K. Kernel S1
+     (``candidate_kernels.cand_select``) turns the first ``cap`` set bits
+     into positions.
+  3. *Exact verification.* On the device (``DeviceVerify``, kernel S2
+     ``candidate_kernels.fp_verify``): each candidate reads a W-byte window
+     of the folded haystack (the verify buffer), per length class its
+     fingerprint bytes hash into a cuckoo table whose slot holds the whole
+     pattern group as one packed row, one row gather fetches it, and
+     full-pattern byte compares confirm. Hash collisions and filter false positives cost
      time, never correctness. Small inputs and oversized patterns verify on
      the host instead (``VerifyIndex``, numpy).
 
@@ -41,19 +42,19 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import candidate_kernels as _ck
 from . import fingerprint_kernels as _kernels
 from .bitap import (
     LANES,
-    R,
     _layout_search,
     _pow2,
     _to_stream_major,
     pack_chains,
     tables_on,
 )
-from .compaction import select_nonzero_words, select_set_bits
+from .candidate_kernels import FP_LEN
+from .compaction import select_matches
 
-FP_LEN = 8          # fingerprint bytes per bucket chain (cap)
 FP_BAKED_MIN = 1 << 20  # bake tables into the kernel above this size
 # Below this haystack size candidates verify on the host (numpy): the
 # device-verify pipeline's jit is specialized per verify-table shape,
@@ -325,20 +326,11 @@ def plan_buckets(patterns: List[bytes], case_insensitive: bool,
 # Candidate positions
 # ---------------------------------------------------------------------------
 def _rank_select(bmp: torch.Tensor, L: int, cap: int):
-    """Candidate positions = the first ``cap`` set bits of the bitmap
-    ``[tiles, L/32, 8, 128]``.
-
-    Returns (total set bits, e_pos [cap] int64 positions, live [cap]);
-    past the total, e_pos holds 0."""
-    ncand, widx, bitpos, live = select_set_bits(bmp.reshape(-1), cap)
-    # Decode the flat [tiles, L//32, R, 128] word index to a position.
-    c = widx % 128
-    r = (widx // 128) % R
-    t32 = (widx // (128 * R)) % (L // 32)
-    tile = widx // (128 * R * (L // 32))
-    stream = (tile * R + r) * 128 + c
-    e_pos = torch.where(live, stream * L + t32 * 32 + bitpos, 0)
-    return ncand, e_pos, live
+    """(total set bits as an int, e_pos [cap], live [cap]): S1
+    (``candidate_kernels.cand_select``) with its count read, the sharded
+    searches' candidate selection."""
+    ncand, e_pos, live = _ck.cand_select(bmp, L, cap)
+    return int(ncand), e_pos, live
 
 
 # ---------------------------------------------------------------------------
@@ -512,78 +504,6 @@ class DeviceVerify:
         )
 
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a constant c < 2^32.
-
-    x * c can pass 2^63, so c is split into 16-bit halves: each partial
-    product stays below 2^48."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _device_verify(wnd, e_pos, live, n: int, dv_tabs, extract: bool,
-                   cap_m: int):
-    """Resolve candidate windows to matches on the device.
-
-    wnd: [C, W] uint8 windows anchored at e_pos - (FP_LEN - 1); live: [C]
-    validity. Per length class (ascending): the polynomial hash of the
-    class's fingerprint bytes, two cuckoo probes, one row gather of the
-    slot's packed pattern group, a compare of the window bytes each
-    pattern covers, and the bounds sp >= 0, sp + len <= n. Returns
-    (total match count, and in extract mode the first cap_m matches as
-    pid [cap_m], end [cap_m], -1 past the total)."""
-    total = torch.zeros((), dtype=torch.int64, device=wnd.device)
-    oks, pids_s, ends_s = [], [], []
-    C = wnd.shape[0]
-    w64 = wnd.to(torch.int64)
-    for c, (mult, ha, hb, logT, tkeys, gmax, grow) in sorted(
-        dv_tabs.items()
-    ):
-        W = grow.shape[1] // gmax - 8
-        h = torch.zeros(C, dtype=torch.int64, device=wnd.device)
-        for j in range(FP_LEN - c, FP_LEN):
-            h = (_mul32(h, mult) + w64[:, j]) & _M32
-        # Cuckoo membership: two element gathers + compares.
-        s1 = _mul32(h, ha) >> (32 - logT)
-        s2 = _mul32(h, hb) >> (32 - logT)
-        use1 = tkeys[s1] == h
-        use2 = tkeys[s2] == h
-        gi = torch.where(use1, s1, s2)
-        hit = (use1 | use2) & live
-        sp = e_pos - (c - 1)  # candidate match start for this class
-        # ONE row gather: the slot's packed pattern group.
-        row = grow[gi]
-        rows_p = row[:, :gmax * W].reshape(C, gmax, W)
-        pids = row[:, gmax * W:gmax * (W + 4)].contiguous().view(torch.int32)
-        lens = row[:, gmax * (W + 4):].contiguous().view(torch.int32)
-        # Compare window bytes inside [off, off+len); outside is dontcare.
-        off = FP_LEN - c
-        jpos = torch.arange(W, device=wnd.device)
-        care = (jpos >= off) & (jpos < off + lens[:, :, None])
-        eq = ((wnd[:, None, :] == rows_p) | ~care).all(dim=2)
-        ok = (
-            hit[:, None] & (pids >= 0) & eq
-            & (sp >= 0)[:, None] & (sp[:, None] + lens <= n)
-        )
-        total = total + ok.sum()
-        if extract:
-            oks.append(ok.reshape(-1))
-            pids_s.append(pids.reshape(-1))
-            ends_s.append((sp[:, None] + lens).reshape(-1))
-    if not extract:
-        return int(total), None, None
-    okm = torch.cat(oks)
-    pidm = torch.cat(pids_s)
-    endm = torch.cat(ends_s)
-    _, mi, _, mlive = select_nonzero_words(okm.to(torch.int32), cap_m)
-    mi = mi.clamp(max=okm.numel() - 1)  # past the count mi is the size
-    out_pid = torch.where(mlive, pidm[mi].to(torch.int64), -1)
-    out_end = torch.where(mlive, endm[mi], -1)
-    return int(total), out_pid, out_end
-
-
 class VerifyIndex:
     """Candidate-position -> exact match-set resolution tables.
 
@@ -705,15 +625,6 @@ def _verify_buffer(x32: torch.Tensor, W: int, fold: bool) -> torch.Tensor:
     lead = torch.zeros(FP_LEN, dtype=torch.uint8, device=b.device)
     guard = torch.zeros(W, dtype=torch.uint8, device=b.device)
     return torch.cat([lead, b, guard])
-
-
-def _gather_windows(u8f: torch.Tensor, e_pos: torch.Tensor,
-                    W: int) -> torch.Tensor:
-    """[C, W] uint8 windows anchored at e_pos - (FP_LEN - 1): one index
-    gather from the verify buffer (the TPU version's overlapping strided
-    rows worked around slow element gathers there)."""
-    idx = (e_pos + 1)[:, None] + torch.arange(W, device=e_pos.device)
-    return u8f[idx]
 
 
 class FpHaystack:
@@ -885,30 +796,35 @@ class FingerprintEngine:
         cap_c = max(self._caps.get("c", 0), floor)
         cap_m = max(self._caps.get("m", 0), floor)
         while True:
+            # One pass: the bitmap, S1 and S2 (which verifies the first
+            # cap_c candidates before their count is known, as the JAX
+            # dispatch does), then one read of both scalars.
             _, bmp = self.bitmap(ph)
-            ncand, e_pos, live = _rank_select(bmp, L, cap_c)
+            ncand, e_pos, live = _ck.cand_select(bmp, L, cap_c)
+            ok, pid, end, total = _ck.fp_verify(ph.u8f, e_pos, live, n,
+                                                dv_tabs, self.dv.W, extract)
+            ncand, total = torch.stack([ncand, total]).tolist()
             if ncand > esc and self._escalate():
                 continue
             if ncand > limit:
                 self.hostile = True
                 return None
+            settled = True
             if ncand > cap_c:
                 cap_c = _pow2(ncand)
-                continue
-            wnd = _gather_windows(ph.u8f, e_pos, self.dv.W)
-            total, out_pid, out_end = _device_verify(
-                wnd, e_pos, live, n, dv_tabs, extract, cap_m
-            )
+                settled = False
             if extract and total > cap_m:
                 cap_m = _pow2(total)
-                continue
-            break
+                settled = False
+            if settled:
+                break
         self._caps["c"] = max(self._caps.get("c", 0), cap_c)
         if extract:
             self._caps["m"] = max(self._caps.get("m", 0), cap_m)
         self.last_caps = (cap_c, cap_m if extract else None)
         if not extract:
             return total
+        out_pid, out_end = select_matches(ok, pid, end, cap_m)
         pid = out_pid.cpu().numpy()
         end = out_end.cpu().numpy()
         real = pid >= 0

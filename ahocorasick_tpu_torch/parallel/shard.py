@@ -58,7 +58,7 @@ from ..ops.block_scan import (
     _scan_states,
     choose_block_len,
 )
-from ..ops.compaction import select_nonzero_words
+from ..ops.compaction import select_matches, select_nonzero_words
 
 
 class Mesh:
@@ -463,10 +463,9 @@ def sharded_cascade_match_pairs(
             ncand, e_pos, live = F._rank_select(bmp, L, cap_c)
             if baked:
                 live = live & (e_pos >= lay.n0[i]) & (e_pos < lay.n1[i])
-            wnd = F._gather_windows(u8f, e_pos, W)
-            outs.append(C._probe_expand_verify(
-                e_pos, live, wnd, lay.nv[i], dv, True, cap_e, cap_m, t.q,
-                t.tail_w0))
+            total, total_e, flags = C.verify_candidates(
+                u8f, e_pos, live, lay.nv[i], t, dv, cap_e, True)
+            outs.append((total_e, total) + select_matches(*flags, cap_m))
             ncands.append(ncand)
             # Exact where ncand fits the cap, else a lower bound (the
             # grown cap's pass then counts them all).

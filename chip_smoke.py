@@ -4,8 +4,9 @@
 
 Runs `ahocorasick_tpu_torch` (never JAX, never the JAX package) on the
 card: builds the Hopper kernels from csrc/bitap.cu (G1, G2), csrc/staged.cu
-(G3, G4) and csrc/fingerprint.cu (G5, G6) with nvcc, one compiler per
-source, all started together; drives the facade at full size on each route
+(G3, G4), csrc/fingerprint.cu (G5, G6) and csrc/candidates.cu (S1-S4: the
+candidate stages after G5/G6) with nvcc, one compiler per source, all
+started together; drives the facade at full size on each route
 the JAX facade takes, every engine mode included, and the packed searcher,
 the debug CLI and sharded search over a mesh; holds every result
 against host truth (`bytes.find`, or the port's native C++ walk for the
@@ -33,8 +34,11 @@ facade call; kernel-vs-plain launches are not counted):
      plain version on the layout the facade gave it, the 64 MiB counts
      included (G1 at K = 229 runs P = 1 in several waves);
   6. fingerprint fused extract of the five names: find_overlapping_iter
-     and find_iter over 16 MiB (G6, verified on the device), find_iter at
-     594,915 bytes (G5);
+     and find_iter over 16 MiB (G6, then S1 selects the candidates and S2
+     verifies them on the device), find_iter at 594,915 bytes (G5, S1,
+     S2); S1/S2 launches against their plain versions on the call's own
+     inputs: the first, second and last of each call (as in phases 8-12
+     and 14), so every launch of a call that makes at most three;
   7. staged extract, 16 MiB: the five names plus a 70-byte pattern (no
      device verify, so the staged route; G3 and G4 in extract mode);
  7b. the staged route beyond 64 limbs: 100 random words of 8-16 bytes
@@ -44,12 +48,14 @@ facade call; kernel-vs-plain launches are not counted):
      against host truth, every launch of both calls against its plain
      version on the call's own inputs;
   8. dict1k: a 1,000-entry case-insensitive name dictionary over 64 MiB of
-     prose, count and find_overlapping_iter (G6), and a 512 KiB count (G5);
+     prose, count and find_overlapping_iter (G6, S1, S2), and a 512 KiB
+     count (G5, S1, S2);
   9. cascade, dict100k: 100,000 case-insensitive names (the reference's
      signature build shape) over 64 MiB of prose through the `auto` facade,
      which takes the cascade engine: count and find_overlapping_iter (G6
-     over the deduped prefixes, then the torch probe, expansion and verify
-     stages), the coarse bitmap against the plain version;
+     over the deduped prefixes, then S1, the class probes S3, the cumsum
+     and the LONG expansion and verify S4), the coarse bitmap against the
+     plain version;
  10. the same dictionary plus a 70-byte pattern (the cascade's side
      bit-parallel engine: G6 and G2 in one count; the extraction's side
      chunks add G1), and a forced engine="cascade" set with no pad byte
@@ -58,11 +64,11 @@ facade call; kernel-vs-plain launches are not counted):
      gathers) over the 64 MiB dict1k text and, with a halo longer than a
      block, over a 128 KiB haystack that fills its bucket; and
      engine="device-only" over the dict1k text, which takes the
-     fingerprint engine (G6);
+     fingerprint engine (G6, S1, S2; the S launches held as in phase 6);
  12. the packed searcher (`ahocorasick_tpu_torch.packed`) on the card:
      `Searcher.new` of the five names over 16 MiB (G2 chunks and a G1
      tail), a 128-name set of over 2,048 pattern bytes over 16 MiB of
-     prose (the fingerprint engine, G6), and `only_teddy` (its
+     prose (the fingerprint engine, G6, S1, S2), and `only_teddy` (its
      fingerprint in torch on the card, host verify), each equal to the
      leftmost-first facade and the host truth; each kernel of these
      calls held bit for bit against its plain version on the inputs of
@@ -73,11 +79,12 @@ facade call; kernel-vs-plain launches are not counted):
      --engine cascade over 4 MiB, each count equal to the native walk's;
  14. sharded search over a mesh of four entries of the card (and of every
      card where there are several): the staged count (G3, G4), the
-     bit-parallel count and pairs (G1), the fingerprint pairs (G5), the
-     cascade pairs (G6) and the stream replace (G1), each equal to the
-     single-device truth and timed beside the single-device call; each
-     kernel held against its plain version on the row and window of
-     shard 1 and of the last shard, as the call launched it;
+     bit-parallel count and pairs (G1), the fingerprint pairs (G5, then
+     S1 per shard, host verify), the cascade pairs (G6, S1, S3, S4 per
+     shard) and the stream replace (G1), each equal to the single-device
+     truth and timed beside the single-device call; each kernel held
+     against its plain version on the row and window of shard 1 and of
+     the last shard (S1-S4 of shard 0 too), as the call launched it;
  15. timing of each kernel at those shapes, with the thread count and the
      segment plan (P segments of Ls bytes per stream) that each wrapper
      records at launch; the device time of the copies that the staged
@@ -89,8 +96,10 @@ facade call; kernel-vs-plain launches are not counted):
      where the trace misses the haystack's upload or reaches outside the
      call; the device walk's call, with its many launches, is traced
      last); the parts of the
-     64 MiB staged counts (five names, 100 words) and of the dict100k
-     cascade count and extraction;
+     64 MiB staged counts (five names, 100 words), of the dict100k
+     cascade count and extraction and of the dict1k fingerprint count and
+     extraction, with the S kernels as their steps; S1-S4 timed at the
+     facade's shapes (dict100k, dict1k) beside their byte bounds;
  16. a `kernels` JSON line (launches from the facade calls, errors, times,
      bounds), then the card's name and power limit, then the final
      `{"ok": true, ...}` line.
@@ -154,7 +163,9 @@ CASCADE_PATTERNS = 100_000  # dict100k (the JAX package's bench.py:271-327)
 CASCADE_N = 64 * MIB       # its haystack
 REPS = 20                  # kernel launches per timed CUDA graph
 RUNS = 7                   # facade calls per end-to-end median
-KERNELS = ("G1", "G2", "G3", "G4", "G5", "G6")
+KERNELS = ("G1", "G2", "G3", "G4", "G5", "G6", "S1", "S2", "S3", "S4")
+# The candidate-stage kernels each engine runs after its bitmap.
+FP_STAGES = ("S1", "S2")
 
 
 def log(*a):
@@ -856,12 +867,16 @@ def main() -> int:
         from ahocorasick_tpu_torch.stream import stream_replace_all
         from ahocorasick_tpu_torch.ops import bitap as TB
         from ahocorasick_tpu_torch.ops import bitap_kernels as TK
+        from ahocorasick_tpu_torch.ops import candidate_kernels as CK
         from ahocorasick_tpu_torch.ops import cascade as TC
         from ahocorasick_tpu_torch.ops import fingerprint as TF
         from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
         from ahocorasick_tpu_torch.ops import staged as TS
         from ahocorasick_tpu_torch.ops import staged_kernels as SK
-        from ahocorasick_tpu_torch.ops.compaction import select_nonzero_words
+        from ahocorasick_tpu_torch.ops.compaction import (
+            select_matches,
+            select_nonzero_words,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -890,9 +905,10 @@ def main() -> int:
 
     # 2. Build: one nvcc per source, all started together ---------------------
     t0 = time.time()
-    libs = (TK.LIBRARY, SK.LIBRARY, FK.LIBRARY)
+    libs = (TK.LIBRARY, SK.LIBRARY, FK.LIBRARY, CK.LIBRARY)
     built = build_all(libs)
-    log(f"[build] bitap.cu, staged.cu, fingerprint.cu -> sm_90a in "
+    log(f"[build] bitap.cu, staged.cu, fingerprint.cu, candidates.cu -> "
+        f"sm_90a in "
         f"{time.time() - t0:.1f} s (in parallel: " + ", ".join(
             f"{k}.cu {v:.1f} s" for k, v in built.items()) + ")")
     report["build_s"] = built
@@ -960,7 +976,9 @@ def main() -> int:
     def counts():
         return dict(G1=TK.generic_launches, G2=TK.baked_launches,
                     G3=SK.flags_launches, G4=SK.gathered_launches,
-                    G5=FK.generic_launches, G6=FK.baked_launches)
+                    G5=FK.generic_launches, G6=FK.baked_launches,
+                    S1=CK.select_launches, S2=CK.verify_launches,
+                    S3=CK.probe_launches, S4=CK.long_launches)
 
     def drive(fn, expect):
         """Run one main-path facade call with every launch count set to 0
@@ -969,6 +987,7 @@ def main() -> int:
         TK.reset_counts()
         SK.reset_counts()
         FK.reset_counts()
+        CK.reset_counts()
         out = fn()
         torch.cuda.synchronize()
         got = counts()
@@ -986,9 +1005,19 @@ def main() -> int:
             raise AssertionError(f"{name}: {size(got)} vs host truth "
                                  f"{size(want)}")
 
+    def flat(x):
+        """A kernel's outputs as a flat tuple (S3 nests its LONG part)."""
+        if not isinstance(x, tuple):
+            return (x,)
+        return tuple(y for z in x for y in flat(z))
+
     def err(k, got, want):
-        pair = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
-        errs[k] = max(errs[k], max_abs_err(pair(got), pair(want)))
+        g, w = flat(got), flat(want)
+        if len(g) != len(w) or any((a is None) != (b is None)
+                                   for a, b in zip(g, w)):
+            raise AssertionError(f"{k}: outputs differ in kind from the "
+                                 f"plain version's")
+        errs[k] = max(errs[k], max_abs_err(g, w))
 
     # Each kernel's wrapper (module, name) and its plain version, which
     # takes the wrapper's own arguments.
@@ -1001,15 +1030,21 @@ def main() -> int:
                lambda *a: FK.fp_bitmap_plain(*a[:6], tuple(a[6:]))),
         "G6": (FK, "fp_bitmap_baked",
                lambda *a: FK.fp_bitmap_plain(*a, None)),
+        "S1": (CK, "cand_select", CK.cand_select_plain),
+        "S2": (CK, "fp_verify", CK.fp_verify_plain),
+        "S3": (CK, "cascade_probe", CK.cascade_probe_plain),
+        "S4": (CK, "cascade_long_verify", CK.cascade_long_verify_plain),
     }
 
-    def drive_held(fn, expect, picks=(1, -1)):
+    def drive_held(fn, expect, only=None):
         """drive(fn, expect) with the arguments of every wrapper call
-        recorded; then, per kernel, the launches at ``picks`` (on a mesh
-        of four, shard 1 and the last shard) run again through the
-        wrapper and its plain version on the same inputs, outside the
-        counted run. Returns drive's result and the launches held per
-        kernel."""
+        recorded; then, per kernel (of ``only`` where given), some of its
+        launches run again through the wrapper and its plain version on
+        the same inputs, outside the counted run: for G1-G6 the second and
+        the last (on a mesh of four, shard 1 and the last shard), for
+        S1-S4 the first as well, so every S launch of a call that makes at
+        most three (and the first pass's, at the smallest caps). Returns
+        drive's result and the launches held per kernel."""
         seen = {k: [] for k in wrappers}
         real = {k: getattr(m, name) for k, (m, name, _) in wrappers.items()}
 
@@ -1027,12 +1062,21 @@ def main() -> int:
                 setattr(m, name, real[k])
         held = {}
         for k, args in seen.items():
+            if only is not None and k not in only:
+                continue
+            picks = (0, 1, -1) if k.startswith("S") else (1, -1)
             at = sorted({j % len(args) for j in picks}) if args else []
             for j in at:
                 err(k, real[k](*args[j]), wrappers[k][2](*args[j]))
             if at:
                 held[k] = at
         return out, held
+
+    def cascade_stages(pats):
+        """The candidate stages of a cascade pass over ``pats``: S4 runs
+        where a main pattern is longer than the exact keys (LONG)."""
+        return ("S1", "S3") + (("S4",) if any(
+            CK.KEY_LEN < len(p) <= TC.W_CASCADE for p in pats) else ())
 
     triples = lambda it: [m.astuple() for m in it]  # noqa: E731
     names = [p.decode() for p in NAMES]
@@ -1213,9 +1257,12 @@ def main() -> int:
 
     # 6. Fingerprint fused extract of the five names ----------------------------
     t0 = time.time()
-    got, c = drive(lambda: triples(ac.find_overlapping_iter(hay16)), ["G6"])
+    (got, c), h6 = drive_held(
+        lambda: triples(ac.find_overlapping_iter(hay16)),
+        ("G6",) + FP_STAGES, only=FP_STAGES)
     check("fingerprint find_overlapping_iter 16 MiB", got, want_ov16)
-    got_it, _ = drive(lambda: triples(ac.find_iter(hay16)), ["G6"])
+    (got_it, _), h6i = drive_held(lambda: triples(ac.find_iter(hay16)),
+                                  ("G6",) + FP_STAGES, only=FP_STAGES)
     check("fingerprint find_iter 16 MiB", got_it, want_it16)
     fp = ac._fp
     assert fp.dv is not None
@@ -1223,7 +1270,8 @@ def main() -> int:
     assert ph16.baked and ph16.u8f is not None
     f16 = fp._args() + (ph16.halo_a, ph16.body)
     err("G6", FK.fp_bitmap_baked(*f16), FK.fp_bitmap_plain(*f16, None))
-    got_h, c5 = drive(lambda: triples(ac.find_iter(hay_h)), ["G5"])
+    (got_h, c5), h5 = drive_held(lambda: triples(ac.find_iter(hay_h)),
+                                 ("G5",) + FP_STAGES, only=FP_STAGES)
     check("fingerprint find_iter 594,915 B", got_h,
           standard_nonoverlapping(NAMES, truth_h))
     phh = fp.prepare(hay_h)
@@ -1233,8 +1281,10 @@ def main() -> int:
         FK.fp_bitmap_plain(*fh, (0, HEADLINE_N)))
     log(f"[fingerprint] five names, K={fp.tables.k}, W={fp.dv.W}: 16 MiB "
         f"{len(got)} overlapping, {len(got_it)} find_iter (G6 {c['G6']} "
-        f"launch); 594,915 B {len(got_h)} find_iter (G5 {c5['G5']}); all = "
-        f"host truth; bitmaps = plain ({time.time() - t0:.1f} s)")
+        f"S1 {c['S1']} S2 {c['S2']} launches, caps {fp.last_caps}); "
+        f"594,915 B {len(got_h)} find_iter (G5 {c5['G5']} S1 {c5['S1']} S2 "
+        f"{c5['S2']}); all = host truth; bitmaps = plain; S1/S2 = plain at "
+        f"launches {h6}, {h6i}, {h5} ({time.time() - t0:.1f} s)")
 
     # 7. Staged extract with a pattern beyond the device-verify window ----------
     t0 = time.time()
@@ -1332,17 +1382,20 @@ def main() -> int:
     native_s = time.time() - t1
     assert native.count_matches(hay_d) == len(truth_d)
     assert ac_d._bitap_engine() is None
-    got, cd = drive(lambda: ac_d.count_matches(hay_d), ["G6"])
+    (got, cd), hd = drive_held(lambda: ac_d.count_matches(hay_d),
+                               ("G6",) + FP_STAGES, only=FP_STAGES)
     check("dict1k count 64 MiB", got, len(truth_d))
-    got_d, _ = drive(lambda: triples(ac_d.find_overlapping_iter(hay_d)),
-                     ["G6"])
+    (got_d, _), hdx = drive_held(
+        lambda: triples(ac_d.find_overlapping_iter(hay_d)),
+        ("G6",) + FP_STAGES, only=FP_STAGES)
     check("dict1k find_overlapping_iter 64 MiB", got_d, truth_d)
     fpd = ac_d._fp
     phd = fpd.prepare(hay_d)
     fd = fpd._args() + (phd.halo_a, phd.body)
     err("G6", FK.fp_bitmap_baked(*fd), FK.fp_bitmap_plain(*fd, None))
     hay_d5 = hay_d[:512 * 1024]
-    got, _ = drive(lambda: ac_d.count_matches(hay_d5), ["G5"])
+    (got, _), hd5 = drive_held(lambda: ac_d.count_matches(hay_d5),
+                               ("G5",) + FP_STAGES, only=FP_STAGES)
     check("dict1k count 512 KiB", got, native.count_matches(hay_d5))
     phd5 = fpd.prepare(hay_d5)
     fd5 = fpd._args() + (phd5.halo_a, phd5.body)
@@ -1351,8 +1404,10 @@ def main() -> int:
     log(f"[dict1k] {len(dict1k)} patterns, K={fpd.tables.k} (level "
         f"{fpd.level}), W={fpd.dv.W}, L={phd.L} x {phd.tiles} tiles: 64 MiB "
         f"{len(truth_d)} matches (native walk {native_s:.1f} s) = count = "
-        f"find_overlapping_iter, G6 {cd['G6']} launch per call; 512 KiB = "
-        f"native; bitmaps = plain ({time.time() - t0:.1f} s)")
+        f"find_overlapping_iter, G6 {cd['G6']} S1 {cd['S1']} S2 {cd['S2']} "
+        f"launches per call, caps {fpd.last_caps}; 512 KiB = native; "
+        f"bitmaps = plain; S1/S2 = plain at launches {hd}, {hdx}, {hd5} "
+        f"({time.time() - t0:.1f} s)")
     # 9. Cascade: 100,000 names through the auto facade ------------------------
     t0 = time.time()
     dict100k = build_words(CASCADE_PATTERNS, 99, NAME_SYLLABLES,
@@ -1368,9 +1423,17 @@ def main() -> int:
     native_c_s = time.time() - t1
     assert native_c.count_matches(hay_c) == len(truth_c)
     assert ac_c._bitap_engine() is None
-    t1 = time.time()
-    got, cc = drive(lambda: ac_c.count_matches(hay_c), ["G6"])
-    first_s = time.time() - t1
+    c_stages = cascade_stages(dict100k)
+    first = {}
+
+    def first_count():
+        t1 = time.time()
+        out = ac_c.count_matches(hay_c)
+        first["s"] = time.time() - t1
+        return out
+    (got, cc), hc = drive_held(first_count, ("G6",) + c_stages,
+                               only=c_stages)
+    first_s = first["s"]
     check("dict100k count", got, len(truth_c))
     cas = ac_c._cascade
     # The facade took the cascade (it leads above CASCADE_MIN_PATTERNS):
@@ -1379,8 +1442,9 @@ def main() -> int:
     if (cas is None or cas.hostile or cas.last_caps is None
             or getattr(ac_c._fp, "last_caps", None) is not None):
         raise AssertionError("dict100k did not take the cascade engine")
-    got_c, cx = drive(lambda: triples(ac_c.find_overlapping_iter(hay_c)),
-                      ["G6"])
+    (got_c, cx), hcx = drive_held(
+        lambda: triples(ac_c.find_overlapping_iter(hay_c)),
+        ("G6",) + c_stages, only=c_stages)
     check("dict100k find_overlapping_iter", got_c, truth_c)
     tc = cas.tables
     ph_c = cas.prepare(hay_c)
@@ -1392,8 +1456,10 @@ def main() -> int:
         f"{native_c_s:.1f} s) = count = find_overlapping_iter; K="
         f"{tc.coarse.k} (level {cas.level}), {tc.num_prefixes} deduped "
         f"q={tc.q} prefixes, classes {sorted(tc.classes)}, W={tc.W}, caps "
-        f"(c, e, m) {cas.last_caps}; G6 launches {cc['G6']} (count) "
-        f"{cx['G6']} (extract); bitmap = plain; searchers built in "
+        f"(c, e, m) {cas.last_caps}; launches per call (count, extract): "
+        + ", ".join(f"{k} {cc[k]} {cx[k]}" for k in ("G6",) + c_stages)
+        + f"; bitmap = plain; S kernels = plain at launches {hc}, {hcx}; "
+        f"searchers built in "
         f"{build_s:.1f} s, first call {first_s:.1f} s (filter engines "
         f"built) ({time.time() - t0:.1f} s)")
 
@@ -1409,12 +1475,15 @@ def main() -> int:
     native_s = AhoCorasick(pats_s, ascii_case_insensitive=True,
                            device="cpu", device_threshold=1 << 62)
     truth_s = triples(native_s.find_overlapping_iter(hay_s))
-    got, cs1 = drive(lambda: ac_s.count_matches(hay_s), ["G6", "G2"])
+    s_stages = cascade_stages(pats_s)
+    (got, cs1), hs1 = drive_held(lambda: ac_s.count_matches(hay_s),
+                                 ("G6", "G2") + s_stages, only=s_stages)
     check("dict100k + LONG count", got, len(truth_s))
     # The side engine's extraction runs in 8 MiB chunks (G2) whose
     # overlapped re-splits leave short tails (G1), as in the JAX package.
-    got_s, cs2 = drive(lambda: triples(ac_s.find_overlapping_iter(hay_s)),
-                       ["G6", "G2", "G1"])
+    (got_s, cs2), hs2 = drive_held(
+        lambda: triples(ac_s.find_overlapping_iter(hay_s)),
+        ("G6", "G2", "G1") + s_stages, only=s_stages)
     check("dict100k + LONG find_overlapping_iter", got_s, truth_s)
     cas_s = ac_s._cascade
     assert cas_s is not None and cas_s.side is not None
@@ -1427,10 +1496,13 @@ def main() -> int:
     hay_n = random_with(pats_n, 4 * MIB, 20_000, rng)
     truth_n = host_pairs(pats_n, hay_n)
     ac_n = AhoCorasick(pats_n, engine="cascade", device=dev)
-    got, cn = drive(lambda: ac_n.count_matches(hay_n), ["G5"])
+    n_stages = cascade_stages(pats_n)
+    (got, cn), hn1 = drive_held(lambda: ac_n.count_matches(hay_n),
+                                ("G5",) + n_stages, only=n_stages)
     check("no-pad cascade count 4 MiB", got, len(truth_n))
-    got_n, _ = drive(lambda: triples(ac_n.find_overlapping_iter(hay_n)),
-                     ["G5"])
+    (got_n, _), hn2 = drive_held(
+        lambda: triples(ac_n.find_overlapping_iter(hay_n)),
+        ("G5",) + n_stages, only=n_stages)
     check("no-pad cascade find_overlapping_iter 4 MiB", got_n,
           overlapping_order(pats_n, truth_n))
     cas_n = ac_n._cascade
@@ -1446,7 +1518,8 @@ def main() -> int:
         f"G2 {cs1['G2']}, extraction G6 {cs2['G6']} G2 {cs2['G2']} G1 "
         f"{cs2['G1']}; no pad byte, engine='cascade', {len(pats_n)} "
         f"patterns, 4 MiB: {len(got_n)} matches = host truth, K="
-        f"{cas_n.tables.coarse.k}, G5 {cn['G5']} launch, bitmap = plain "
+        f"{cas_n.tables.coarse.k}, G5 {cn['G5']} launch, bitmap = plain; "
+        f"S kernels = plain at launches {hs1}, {hs2}, {hn1}, {hn2} "
         f"({time.time() - t0:.1f} s)")
 
     # 11. The blocked device DFA walk, and device-only ------------------------
@@ -1476,10 +1549,12 @@ def main() -> int:
     assert hh > hl and len(truth_h) == len(hay_h) - 199
     ac_o = AhoCorasick(dict1k, ascii_case_insensitive=True, device=dev,
                        engine="device-only")
-    got, _ = drive(lambda: ac_o.count_matches(hay_d), ["G6"])
+    (got, _), ho1 = drive_held(lambda: ac_o.count_matches(hay_d),
+                               ("G6",) + FP_STAGES, only=FP_STAGES)
     check("device-only count 64 MiB", got, len(truth_d))
-    got_o, _ = drive(lambda: triples(ac_o.find_overlapping_iter(hay_d)),
-                     ["G6"])
+    (got_o, _), ho2 = drive_held(
+        lambda: triples(ac_o.find_overlapping_iter(hay_d)),
+        ("G6",) + FP_STAGES, only=FP_STAGES)
     check("device-only find_overlapping_iter 64 MiB", got_o, truth_d)
     assert ac_o._fp is not None and ac_o._dev_automaton is None
     log(f"[device walk] dict1k engine='dfa-scan', {len(hay_d)} B: count and "
@@ -1488,7 +1563,8 @@ def main() -> int:
         f"halo, no kernel); {len(hay_h)} B of b'a' against a 200-byte "
         f"pattern (blocks of {hl} B + a {hh}-B halo): {len(truth_h)} matches "
         f"= native; engine='device-only': the fingerprint engine "
-        f"(G6) = native ({time.time() - t0:.1f} s)")
+        f"(G6, S1, S2) = native, S1/S2 = plain at launches {ho1}, {ho2} "
+        f"({time.time() - t0:.1f} s)")
 
     # 12. The packed searcher --------------------------------------------------
     t0 = time.time()
@@ -1510,7 +1586,7 @@ def main() -> int:
     packed128 = Searcher.new(names128)
     assert packed128._bitap is None
     (got, cp2), h2 = drive_held(
-        lambda: triples(packed128.find_iter(hay128)), ["G6"])
+        lambda: triples(packed128.find_iter(hay128)), ("G6",) + FP_STAGES)
     check("packed find_iter 128 names 16 MiB", got, want128)
     assert packed128._fp.dv is not None and not packed128._fp.hostile
     check("facade leftmost-first 128 names 16 MiB", triples(AhoCorasick(
@@ -1523,7 +1599,8 @@ def main() -> int:
         f"facade = host truth, launches G2 {cp1['G2']} G1 {cp1['G1']}; "
         f"{len(names128)} names of {sum(len(p) for p in names128)} B "
         f"(fingerprint engine, K={packed128._fp.tables.k}) 16 MiB: "
-        f"{len(want128)} = facade = host truth, G6 {cp2['G6']} launch; "
+        f"{len(want128)} = facade = host truth, G6 {cp2['G6']} S1 "
+        f"{cp2['S1']} S2 {cp2['S2']} launches; "
         f"kernel = plain at these inputs (launches held: {h1}, {h2}); "
         f"only_teddy 16 MiB (fingerprint in torch on the card, host "
         f"verify): = host truth ({time.time() - t0:.1f} s)")
@@ -1611,10 +1688,11 @@ def main() -> int:
             ("sharded_bitap_match_pairs, five names, 16 MiB", ["G1"],
              lambda: pair_list(sharded_bitap_match_pairs(eng, hay16, mesh)),
              want_p16, lambda: eng.match_pairs(hay16)),
-            ("sharded_fp_match_pairs, dict1k, 64 MiB", ["G5"],
+            ("sharded_fp_match_pairs, dict1k, 64 MiB", ["G5", "S1"],
              lambda: pair_list(sharded_fp_match_pairs(fpd, hay_d, mesh)),
              want_pd, lambda: fpd.match_pairs(hay_d)),
-            ("sharded_cascade_match_pairs, dict100k, 64 MiB", ["G6"],
+            ("sharded_cascade_match_pairs, dict100k, 64 MiB",
+             ("G6",) + c_stages,
              lambda: pair_list(sharded_cascade_match_pairs(cas, hay_c,
                                                            mesh)),
              want_pc, lambda: cas.match_pairs(hay_c)),
@@ -1949,23 +2027,44 @@ def main() -> int:
         f"{k} {v:.4f} ms" for k, v in removed.items()) + f" | {card}")
     report["removed_copies_ms"] = removed
 
-    # The dict100k cascade count's steps, RUNS times, each run beside a
-    # whole count_matches call, at the caps the facade settled: host pack,
-    # pageable upload, the stream-major layout and the verify buffer, G6,
-    # rank-select, window gather, the exact-class probes, the LONG probe
-    # with its expansion and tail verify (and the one read of the totals),
-    # each ended by a synchronise; and for the extraction, its device
-    # selection and the host's transfer, duplicate expansion and
+    # The dict100k cascade's and the dict1k fingerprint's 64 MiB count and
+    # extraction, step by step, RUNS times, each run beside a whole
+    # count_matches call, at the caps the facade settled: the host pack,
+    # the pageable upload, the stream-major layout and the verify buffer,
+    # G6, then the candidate kernels of the count (cascade: S1, S3, the
+    # cumsum and S4 with the one read of the pass's scalars; fingerprint:
+    # S1, S2 with the read), each ended by a synchronise; then the
+    # extraction's stages over the same candidates (the S kernels in
+    # extract mode with their read), its selection of the matches, and
+    # the host's transfer (with the cascade's duplicate expansion) and
     # report-order lexsort.
+    def pack_upload(eng, hay, L_p, tiles_p, mark):
+        buf = np.full(tiles_p * TB.LANES * L_p, eng.pad_byte, np.uint8)
+        buf[:len(hay)] = np.frombuffer(hay, np.uint8)
+        x32 = torch.from_numpy(buf.view(np.int32))
+        mark()
+        x32 = x32.to(dev)
+        mark()
+        return x32
+
+    def parts_log(name, parts, steps, count_steps):
+        med = {k: float(np.median(v)) for k, v in parts.items()}
+        log(f"[e2e parts] {name} 64 MiB, medians of {RUNS} (count: "
+            f"{steps[0]} .. {count_steps[-1]}; extraction adds "
+            f"{steps[len(count_steps)]} .. {steps[-1]}): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in med.items()) + f" | {card}")
+        return med
+
     n_c = len(hay_c)
-    cap_c, cap_e, cap_m = cas.last_caps
+    cap_c, cap_e, cap_m = cas.last_caps[:2] + (cas._caps["m"],)
     dvc = tc.device_tensors(dev)
-    steps = ("pack", "upload", "layout_and_verify_buffer", "G6",
-             "rank_select", "windows", "class_probes",
-             "long_expand_verify", "select_matches", "host_pairs",
-             "lexsort")
+    c_count = ("pack", "upload", "layout_and_verify_buffer", "G6",
+               "S1_cand_select", "S3_cascade_probe",
+               "S4_cumsum_long_verify_and_read")
+    c_steps = c_count + ("S3_S4_extract_and_read", "select_matches",
+                         "host_pairs", "lexsort")
     cparts = {k: [] for k in ("count_matches", "sum_of_count_parts")
-              + steps}
+              + c_steps}
     for _ in range(RUNS):
         cparts["count_matches"].append(
             host_ms(lambda: ac_c.count_matches(hay_c)))
@@ -1976,48 +2075,214 @@ def main() -> int:
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
         L_c, tiles_c = cas._layout(n_c)
-        buf = np.full(tiles_c * TB.LANES * L_c, cas.pad_byte, np.uint8)
-        buf[:n_c] = np.frombuffer(hay_c, np.uint8)
-        x32 = torch.from_numpy(buf.view(np.int32))
-        mark()
-        x32 = x32.to(dev)
-        mark()
+        x32 = pack_upload(cas, hay_c, L_c, tiles_c, mark)
         halo_c, body_c = TB._to_stream_major(x32, L_c, tiles_c, cas.halo)
         u8f = TF._verify_buffer(x32, tc.W, cas.ci)
         mark()
         _, bmp = FK.fp_bitmap_baked(*dvc["coarse"], halo_c, body_c)
         mark()
-        ncand, e_pos, live = TF._rank_select(bmp, L_c, cap_c)
+        ncand_t, e_pos, live = CK.cand_select(bmp, L_c, cap_c)
         mark()
-        wnd = TF._gather_windows(u8f, e_pos, tc.W)
+        probe_c = (u8f, e_pos, live, n_c, dvc["classes"], tc.q, tc.W)
+        _, _, _, tot3, long_c = CK.cascade_probe(*probe_c, False)
         mark()
-        total, parts = TC._probe_exact(e_pos, live, wnd, n_c, dvc, tc.q)
+        long_args = lambda lng, ex: (  # noqa: E731
+            *lng, e_pos, u8f, dvc["pidarr"], dvc["pv"], n_c, cap_e,
+            tc.tail_w0, tc.W, ex)
+        _, _, _, tot4, tot_e = CK.cascade_long_verify(*long_args(long_c,
+                                                                 False))
+        ncand, cnt3, cnt4, ne = torch.stack([ncand_t, tot3, tot4,
+                                             tot_e]).tolist()
         mark()
-        total_e, (ok, pid, end) = TC._expand_long(e_pos, live, wnd, n_c, dvc,
-                                                  cap_e, tc.q, tc.tail_w0)
-        ne, cnt = torch.stack([total_e, total + ok.sum()]).tolist()
+        assert ncand <= cap_c and ne <= cap_e
+        assert cnt3 + cnt4 == len(truth_c), (cnt3, cnt4)
+        ok3, pid3, end3, _, long_x = CK.cascade_probe(*probe_c, True)
+        ok4, pid4, end4, t4x, _ = CK.cascade_long_verify(*long_args(long_x,
+                                                                    True))
+        assert int(t4x) == cnt4
         mark()
-        assert ncand <= cap_c and ne <= cap_e and cnt == len(truth_c)
-        parts.append((ok, pid, end))
-        out_pid, out_end = TC._select_matches(parts, cap_m)
+        out_pid, out_end = select_matches(
+            torch.cat([ok3.reshape(-1), ok4]),
+            torch.cat([pid3.reshape(-1), pid4]),
+            torch.cat([end3.reshape(-1), end4]), cap_m)
         mark()
         hp, he = cas._host_pairs(out_pid, out_end)
         mark()
         order = np.lexsort((cas.pid_rank[hp], he))
         mark()
         assert len(order) == len(truth_c)
-        for k, a, b in zip(steps, marks, marks[1:]):
+        for k, a, b in zip(c_steps, marks, marks[1:]):
             cparts[k].append((b - a) * 1e3)
-        cparts["sum_of_count_parts"].append((marks[8] - marks[0]) * 1e3)
-        del buf, x32, halo_c, body_c, u8f, bmp, wnd
-    cmed = {k: float(np.median(v)) for k, v in cparts.items()}
-    log("[e2e parts] cascade dict100k 64 MiB, medians of "
-        f"{RUNS} (count: pack .. long_expand_verify; extraction adds "
-        "select_matches .. lexsort): " + ", ".join(
-            f"{k} {v:.3f} ms" for k, v in cmed.items()) + f" | {card}")
+        cparts["sum_of_count_parts"].append(
+            (marks[len(c_count)] - marks[0]) * 1e3)
+        del x32, halo_c, body_c
+    cmed = parts_log("cascade dict100k", cparts, c_steps, c_count)
     report["cascade_parts"] = dict(runs_ms=cparts, median_ms=cmed,
                                    ncand=ncand, expanded=ne, caps=[
                                        cap_c, cap_e, cap_m])
+
+    n_d = len(hay_d)
+    fcap_c, fcap_m = fpd._caps["c"], fpd._caps["m"]
+    dtabs = fpd.dv.device_tables(dev)
+    f_count = ("pack", "upload", "layout_and_verify_buffer", "G6",
+               "S1_cand_select", "S2_fp_verify_and_read")
+    f_steps = f_count + ("S2_extract_and_read", "select_matches",
+                         "host_pairs_and_lexsort")
+    fparts = {k: [] for k in ("count_matches", "sum_of_count_parts")
+              + f_steps}
+    for _ in range(RUNS):
+        fparts["count_matches"].append(
+            host_ms(lambda: ac_d.count_matches(hay_d)))
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        L_d, _, tiles_d = fpd._layout(n_d)
+        x32 = pack_upload(fpd, hay_d, L_d, tiles_d, mark)
+        halo_d, body_d = TB._to_stream_major(x32, L_d, tiles_d, fpd.halo)
+        u8d = TF._verify_buffer(x32, fpd.dv.W, fpd.ci)
+        mark()
+        _, bmp_d = FK.fp_bitmap_baked(*fpd._args(), halo_d, body_d)
+        mark()
+        ncand_t, e_pos_d, live_d = CK.cand_select(bmp_d, L_d, fcap_c)
+        mark()
+        verify_d = (u8d, e_pos_d, live_d, n_d, dtabs, fpd.dv.W)
+        _, _, _, tot2 = CK.fp_verify(*verify_d, False)
+        ncand_d, cnt_d = torch.stack([ncand_t, tot2]).tolist()
+        mark()
+        assert ncand_d <= fcap_c and cnt_d == len(truth_d)
+        ok2, pid2, end2, t2x = CK.fp_verify(*verify_d, True)
+        assert int(t2x) == cnt_d <= fcap_m
+        mark()
+        out_pid, out_end = select_matches(ok2, pid2, end2, fcap_m)
+        mark()
+        pid_h, end_h = out_pid.cpu().numpy(), out_end.cpu().numpy()
+        real = pid_h >= 0
+        order = np.lexsort((fpd.verif.pid_rank[pid_h[real]], end_h[real]))
+        mark()
+        assert len(order) == len(truth_d)
+        for k, a, b in zip(f_steps, marks, marks[1:]):
+            fparts[k].append((b - a) * 1e3)
+        fparts["sum_of_count_parts"].append(
+            (marks[len(f_count)] - marks[0]) * 1e3)
+        del x32, halo_d, body_d
+    fmed = parts_log("fingerprint dict1k", fparts, f_steps, f_count)
+    report["fingerprint_parts"] = dict(runs_ms=fparts, median_ms=fmed,
+                                       ncand=ncand_d, caps=[fcap_c, fcap_m])
+
+    # S1-S4 at those shapes: CUDA-graph time, the plain version's time, and
+    # the bound: the bytes each must move (its inputs read once, every
+    # gather a whole 32-byte sector, only for the live candidates and
+    # expansion rows that this run's data has; its outputs written once)
+    # over the memory rate. No PyTorch call computes these functions
+    # (library: none).
+    def sectors(nbytes):
+        return -(-nbytes // 32) * 32
+
+    launch_shape = {"S1": lambda: CK.select_shape,
+                    "S2": lambda: CK.verify_shape,
+                    "S3": lambda: CK.probe_shape,
+                    "S4": lambda: CK.long_shape}
+
+    def stage_row(name, per_call, kern, plain, moved, threads):
+        """One timed S kernel; the wrapper's record of its last launch
+        (``launch_shape``) beside it."""
+        err(name[:2], kern(), plain())
+        ms = kernel_ms(kern)
+        shape = launch_shape[name[:2]]()
+        plain_ms = events_ms(plain)
+        bms = moved / HBM_BYTES_PER_S * 1e3
+        r = dict(name=name, bytes=moved, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bms, bound_by="bytes", share_of_bound=bms / ms,
+                 launches_per_call=per_call, library_ms=None,
+                 launch_shape=shape, threads=threads, P=None, Ls=None,
+                 G=None)
+        log(f"[time] {name}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bms:.4f} ms (bytes: {moved} B), {100 * bms / ms:.1f}% of "
+            f"bound; {threads} threads, launch shape {shape}; {per_call} "
+            f"launches per call; library: none | {card}")
+        return r
+
+    def s1_row(name, bmp_s, L_s, cap_s, nc, per_call):
+        moved = bmp_s.numel() * 4 + cap_s * 9 + 8
+        return stage_row(f"S1 cand_select {name}: {bmp_s.numel()} words, "
+                         f"{nc} candidates in cap {cap_s}", per_call,
+                         lambda: CK.cand_select(bmp_s, L_s, cap_s),
+                         lambda: CK.cand_select_plain(bmp_s, L_s, cap_s),
+                         moved, max(bmp_s.numel() // 8, cap_s))
+
+    # The live candidates whose cuckoo probe hits, per class: a count
+    # needs a class's group row only for those; an extraction writes every
+    # slot's pid and end, so it reads each live candidate's row.
+    w64_d = CK.gather_windows(u8d, e_pos_d, fpd.dv.W).to(torch.int64)
+    hits_d = {c: int((CK.fp_probe(w64_d, c, *tab[:5])[0] & live_d).sum())
+              for c, tab in dtabs.items()}
+    del w64_d
+
+    def s2_row(ex):
+        C, W = fcap_c, fpd.dv.W
+        live_n = min(ncand_d, C)
+        moved = C * 9 + live_n * sectors(W) + 8
+        for c, (_, _, _, _, _, gmax, _) in dtabs.items():
+            rows_n = live_n if ex else hits_d[c]
+            moved += live_n * 2 * 32 + rows_n * sectors(gmax * (W + 8))
+            moved += C * gmax * 13 if ex else 0
+        mode = "extract" if ex else "count"
+        return stage_row(f"S2 fp_verify {mode} dict1k: {live_n} candidates "
+                         f"in cap {C}, {len(dtabs)} classes (probe hits "
+                         f"{sorted(hits_d.items())}), W={W}",
+                         cd["S2"], lambda: CK.fp_verify(*verify_d, ex),
+                         lambda: CK.fp_verify_plain(*verify_d, ex), moved, C)
+
+    def s3_row(ex):
+        C, W = cap_c, tc.W
+        E = len(tc.classes) - int(TC.LONG in tc.classes)
+        live_n = min(ncand, C)
+        moved = (C * 9 + live_n * (sectors(W) + len(tc.classes) * 2 * 32)
+                 + (E * C * 17 if ex else 0) + C * 24 + 8)
+        mode = "extract" if ex else "count"
+        return stage_row(f"S3 cascade_probe {mode} dict100k: {live_n} "
+                         f"candidates in cap {C}, {E} exact classes + LONG",
+                         cc["S3"], lambda: CK.cascade_probe(*probe_c, ex),
+                         lambda: CK.cascade_probe_plain(*probe_c, ex), moved,
+                         C)
+
+    def s4_row(ex):
+        lng = long_x if ex else long_c
+        a = long_args(lng, ex)
+        rows_n = min(ne, cap_e)
+        groups = int((lng[0] > 0).sum())
+        Ww = tc.W // 4
+        moved = (cap_c * 32 + rows_n * (32 + sectors((2 * Ww + 1) * 4))
+                 + groups * sectors(tc.W) + (cap_e * 17 if ex else 0) + 8)
+        mode = "extract" if ex else "count"
+        return stage_row(f"S4 cascade_long_verify {mode} dict100k: "
+                         f"{rows_n} rows in cap {cap_e} from {groups} "
+                         f"groups", cc["S4"],
+                         lambda: CK.cascade_long_verify(*a),
+                         lambda: CK.cascade_long_verify_plain(*a), moved,
+                         cap_e)
+
+    srows_s = {
+        "S1": s1_row("dict100k", bmp, L_c, cap_c, ncand, cc["S1"]),
+        "S1 dict1k": s1_row("dict1k", bmp_d, L_d, fcap_c, ncand_d,
+                            cd["S1"]),
+        "S2": s2_row(False),
+        "S2 extract": s2_row(True),
+        "S3": s3_row(False),
+        "S3 extract": s3_row(True),
+        "S4": s4_row(False),
+        "S4 extract": s4_row(True),
+    }
+    rows.update(srows_s)
+    stage_ms = {"cascade dict100k": sum(cmed[k] for k in c_count[4:]),
+                "fingerprint dict1k": sum(fmed[k] for k in f_count[4:])}
+    log("[e2e parts] 64 MiB counts, the stages after G6 (S1 .. the read of "
+        "the scalars, medians): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in stage_ms.items()) + f" | {card}")
+    report["stage_ms_after_G6"] = stage_ms
 
     # 16. Result lines ---------------------------------------------------------------
     def entry(k, fn, src, line, r):
@@ -2042,6 +2307,14 @@ def main() -> int:
               "ahocorasick_tpu/ops/fingerprint.py:369", rows["G5"]),
         entry("G6", "fp_bitmap (pad-byte padded)", "fingerprint.cu",
               "ahocorasick_tpu/ops/fingerprint.py:434", rows["G6"]),
+        entry("S1", "cand_select", "candidates.cu",
+              "ahocorasick_tpu/ops/fingerprint.py:547", rows["S1"]),
+        entry("S2", "fp_verify", "candidates.cu",
+              "ahocorasick_tpu/ops/fingerprint.py:765", rows["S2"]),
+        entry("S3", "cascade_probe", "candidates.cu",
+              "ahocorasick_tpu/ops/cascade.py:364", rows["S3"]),
+        entry("S4", "cascade_long_verify", "candidates.cu",
+              "ahocorasick_tpu/ops/cascade.py:395", rows["S4"]),
     ]
     # The limb-group rows beyond 64 limbs, G1-G4.
     for k, fn, src, line, row in (

@@ -21,7 +21,9 @@ import ahocorasick_tpu.ops.cascade as JC
 import ahocorasick_tpu_torch as T
 import ahocorasick_tpu_torch.ops.cascade as TC
 import ahocorasick_tpu_torch.ops.fingerprint as TF
+from ahocorasick_tpu_torch.ops import candidate_kernels as CK
 from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
+from ahocorasick_tpu_torch.ops.compaction import select_matches
 from test_cascade import NAME_SYL, brute_pairs, make_dict, make_text
 
 FF = [b"\xff" * 8, b"\xff" * 4, b"\xff" * 7, b"\xff" * 12]
@@ -111,7 +113,8 @@ def test_tables_equal_jax(name):
 # Stages 2 and 3 on the same windows
 # ---------------------------------------------------------------------------
 def _windows(pats, ci, hay, cap, seed):
-    """(e_pos, live, wnd, n) for a port engine: candidate ends at the
+    """(engine, e_pos, live, u8f, wnd, n) for a port engine: the verify
+    buffer and its windows at candidate ends at the
     coarse-prefix end of true matches (so every class hits), at all-0xFF
     stretches and at random positions, some of them not live."""
     te = TC.CascadeEngine(pats, ci, "cpu")
@@ -128,8 +131,8 @@ def _windows(pats, ci, hay, cap, seed):
     live = torch.from_numpy(rng.random(cap) < 0.95)
     live[len(e):] = False
     ph = te.prepare(hay)
-    wnd = TF._gather_windows(ph.u8f, e_pos, t.W)
-    return te, e_pos, live, wnd, len(hay)
+    wnd = CK.gather_windows(ph.u8f, e_pos, t.W)
+    return te, e_pos, live, ph.u8f, wnd, len(hay)
 
 
 def _jax_stages(pats, ci, e_pos, live, wnd, n, extract, cap_e, cap_m):
@@ -147,17 +150,22 @@ def _jax_stages(pats, ci, e_pos, live, wnd, n, extract, cap_e, cap_m):
 @pytest.mark.parametrize("caps", ["fit", "overflow"])
 def test_stages_equal_jax(name, extract, caps):
     pats, ci, hay = _set(name)
-    te, e_pos, live, wnd, n = _windows(pats, ci, hay, 1024, 5)
+    te, e_pos, live, u8f, wnd, n = _windows(pats, ci, hay, 1024, 5)
     t = te.tables
     dv = t.device_tensors(torch.device("cpu"))
-    full = TC._probe_expand_verify(e_pos, live, wnd, n, dv, False, 1 << 14,
-                                   1 << 14, t.q, t.tail_w0)
+
+    def stages(extract, cap_e, cap_m):
+        total, total_e, flags = TC.verify_candidates(u8f, e_pos, live, n, t,
+                                                     dv, cap_e, extract)
+        if not extract:
+            return total_e, total
+        return (total_e, total) + select_matches(*flags, cap_m)
+    full = stages(False, 1 << 14, 1 << 14)
     total_e, total = int(full[0]), int(full[1])
     assert total > 50 and (TC.LONG not in t.classes or total_e > 20)
     cap_e, cap_m = ((1 << 14, 1 << 14) if caps == "fit"
                     else (max(total_e // 2, 1), max(total // 3, 1)))
-    got = TC._probe_expand_verify(e_pos, live, wnd, n, dv, extract, cap_e,
-                                  cap_m, t.q, t.tail_w0)
+    got = stages(extract, cap_e, cap_m)
     want = _jax_stages(pats, ci, e_pos, live, wnd, n, extract, cap_e, cap_m)
     assert [int(got[0]), int(got[1])] == [int(want[0]), int(want[1])]
     if caps == "overflow":
@@ -178,7 +186,7 @@ def test_stages_equal_jax(name, extract, caps):
     ([0, 0, 0], 4),                     # nothing to expand
 ])
 def test_expand_gid_equals_jax(counts, cap):
-    tot, gid, resid, live = TC._expand_gid(torch.tensor(counts), cap)
+    tot, gid, resid, live = CK.expand_gid(torch.tensor(counts), cap)
     jtot, jgid, jresid, jlive = (np.asarray(a) for a in JC._expand_gid(
         jnp.asarray(np.array(counts, np.int32)), cap))
     assert int(tot) == int(jtot) == sum(counts)
@@ -193,7 +201,7 @@ def test_class_key_of_all_ff_window_is_the_empty_sentinel():
     in the port's unsigned representation; only the occupancy test keeps
     it from hitting."""
     wnd = torch.full((2, 24), 0xFF, dtype=torch.uint8)
-    lo, hi = TC._class_key(wnd, TC.LONG, 8)
+    lo, hi = CK.class_key(wnd, TC.LONG, 8)
     assert lo.tolist() == hi.tolist() == [0xFFFFFFFF] * 2
     te = TC.CascadeEngine(make_dict(np.random.default_rng(1), 30, NAME_SYL)
                           + [b"\xff" * 9], False, "cpu")

@@ -775,3 +775,195 @@ def test_four_entry_mesh_equals_cpu_mesh(dev):
                                       mesh=m, chunk_size=1 << 18)
         return out.getvalue()
     assert both(replace) == ac[cpu].try_replace_all_bytes(hay, reps)
+
+
+# ---------------------------------------------------------------------------
+# The candidate stages S1-S4 (csrc/candidates.cu)
+# ---------------------------------------------------------------------------
+def _flat(x):
+    if not isinstance(x, tuple):
+        return (x,)
+    return tuple(y for z in x for y in _flat(z))
+
+
+def _stage_same(got, want):
+    """A stage kernel's outputs against its plain version's, bit for bit,
+    unset (None) outputs included."""
+    got, want = _flat(got), _flat(want)
+    assert [g is None for g in got] == [w is None for w in want]
+    _same(got, want)
+
+
+@pytest.mark.parametrize("cands,cap", [(43_819, 65_536), (70_000, 65_536),
+                                       (0, 512)])
+def test_cand_select_equals_plain(dev, cands, cap):
+    """S1 on the bitmap of a 64 MiB haystack (2M words, as the dict100k
+    count gives it): every candidate in the cap, more than the cap, none;
+    the first and the last position set where there are candidates."""
+    from ahocorasick_tpu_torch.ops import candidate_kernels as CK
+
+    tiles, L = 16, 4096
+    n = tiles * 1024 * L
+    rng = np.random.default_rng(cands)
+    pos = rng.choice(n, cands, replace=False) if cands else np.zeros(0, int)
+    if cands:
+        pos[:2] = (0, n - 1)
+    words = np.zeros(n // 32, np.uint32)
+    # position p of stream s = p // L lies in word (tile, t32, row, col).
+    s, t = pos // L, pos % L
+    flat = (((s // 1024) * (L // 32) + t // 32) * 8 + (s // 128) % 8) * 128 \
+        + s % 128
+    np.bitwise_or.at(words, flat, (np.uint32(1) << (t % 32)).astype(
+        np.uint32))
+    bmp = torch.from_numpy(words.view(np.int32).reshape(
+        tiles, L // 32, 8, 128)).to(dev)
+    CK.reset_counts()
+    got = CK.cand_select(bmp, L, cap)
+    assert CK.select_launches == 1
+    want = CK.cand_select_plain(bmp, L, cap)
+    _stage_same(got, want)
+    assert int(got[0]) == cands
+    if 0 < cands <= cap:
+        assert set(got[1][:cands].tolist()) == set(pos.tolist())
+
+
+def _dict_text(pats, n, seed, density=0.2):
+    """n bytes of words separated by spaces: a pattern with probability
+    ``density``, else 3-7 random lowercase letters."""
+    rng = np.random.default_rng(seed)
+    out, size = [], 0
+    while size < n:
+        if rng.random() < density:
+            w = pats[int(rng.integers(len(pats)))]
+        else:
+            w = rng.integers(97, 123, int(rng.integers(3, 8)),
+                             dtype=np.uint8).tobytes()
+        out.append(w)
+        size += len(w) + 1
+    return b" ".join(out)[:n]
+
+
+def _fp_stage_inputs(dev, pats, ci, n, seed):
+    eng = TF.FingerprintEngine(pats, ci, dev)
+    assert eng.dv is not None
+    hay = _dict_text(pats, n, seed)
+    ph = eng.prepare(hay)
+    _, bmp = eng.bitmap(ph)
+    return eng, ph, bmp
+
+
+@pytest.mark.parametrize("name", ["names1k", "groups16"])
+def test_fp_verify_equals_plain(dev, name):
+    """S2 after S1 on a fingerprint engine's 1 MiB bitmap, count and
+    extract modes: a case-insensitive 1,000-name set, and one with a
+    fingerprint group of GMAX_CAP = 16 patterns."""
+    from ahocorasick_tpu_torch.ops import candidate_kernels as CK
+
+    if name == "names1k":
+        pats, ci = _cascade_names(1000), True
+    else:
+        pats = _cascade_names(200) + [b"barbelfa" + b"xyzw"[:1 + k % 4] * (
+            1 + k // 4) for k in range(16)]
+        pats, ci = sorted(set(pats)), False
+    eng, ph, bmp = _fp_stage_inputs(dev, pats, ci, 1 << 20, 20)
+    if name == "groups16":
+        assert max(g for _, _, g in eng.dv.key()[1]) == TF.GMAX_CAP
+    ncand, e_pos, live = CK.cand_select(bmp, ph.L, 1 << 17)
+    assert 0 < int(ncand) <= 1 << 17
+    tabs = eng.dv.device_tables(dev)
+    for extract in (False, True):
+        a = (ph.u8f, e_pos, live, ph.n, tabs, eng.dv.W, extract)
+        CK.reset_counts()
+        got = CK.fp_verify(*a)
+        assert CK.verify_launches == 1
+        _stage_same(got, CK.fp_verify_plain(*a))
+
+
+def test_cascade_probe_and_long_verify_equal_plain(dev):
+    """S3 and S4 after S1 on a cascade engine's 1 MiB bitmap (5,000 names,
+    all-0xFF patterns and windows, a LONG class), count and extract modes,
+    S4 with a cap that holds every expansion row and one that does not."""
+    from ahocorasick_tpu_torch.ops import candidate_kernels as CK
+    from ahocorasick_tpu_torch.ops import cascade as TC
+
+    pats = _cascade_names(5000) + [b"\xff" * 4, b"\xff" * 8, b"\xff" * 12]
+    eng = TC.CascadeEngine(pats, True, dev)
+    hay = _dict_text(pats, 1 << 20, 21) + b"\xff" * 40
+    ph = eng.prepare(hay)
+    t = eng.tables
+    assert TC.LONG in t.classes
+    dv = t.device_tensors(dev)
+    _, bmp = eng._bitmap(ph, dv["coarse"])
+    ncand, e_pos, live = CK.cand_select(bmp, ph.L, 1 << 17)
+    assert 0 < int(ncand) <= 1 << 17
+    for extract in (False, True):
+        a = (ph.u8f, e_pos, live, ph.n, dv["classes"], t.q, t.W, extract)
+        CK.reset_counts()
+        got = CK.cascade_probe(*a)
+        assert CK.probe_launches == 1
+        _stage_same(got, CK.cascade_probe_plain(*a))
+        rows = int(got[4][0].sum())
+        assert rows > 100
+        for cap_e in (1 << 17, rows // 2):
+            b = (*got[4], e_pos, ph.u8f, dv["pidarr"], dv["pv"], ph.n, cap_e,
+                 t.tail_w0, t.W, extract)
+            got4 = CK.cascade_long_verify(*b)
+            _stage_same(got4, CK.cascade_long_verify_plain(*b))
+            assert int(got4[4]) == rows
+
+
+@pytest.mark.parametrize("kind", ["dict1k", "dict100k"])
+def test_facade_dictionaries_equal_cpu_runs(dev, kind):
+    """The facade's count and extraction of a 1,000-name dictionary (the
+    fingerprint engine: G6, S1, S2) and of 100,000 names (the cascade: G6,
+    S1, S3, S4) over 2 MiB of text with the names at rate 0.01, against
+    the same facade on the CPU; once the first call has settled the caps,
+    a count is one pass: one launch of each stage kernel."""
+    from ahocorasick_tpu_torch.ops import candidate_kernels as CK
+
+    pats = _cascade_names(1000 if kind == "dict1k" else 100_000)
+    hay = _dict_text(pats, 2 << 20, 22, 0.01)
+    card, cpu = (AhoCorasick(pats, ascii_case_insensitive=True, device=d)
+                 for d in (dev, "cpu"))
+    assert card.count_matches(hay) == cpu.count_matches(hay)
+    CK.reset_counts()
+    assert card.count_matches(hay) == cpu.count_matches(hay)
+    stages = (CK.select_launches, CK.verify_launches, CK.probe_launches,
+              CK.long_launches)
+    assert stages == ((1, 1, 0, 0) if kind == "dict1k" else (1, 0, 1, 1))
+    got = [m.astuple() for m in card.find_overlapping_iter(hay)]
+    assert got == [m.astuple() for m in cpu.find_overlapping_iter(hay)]
+    assert len(got) > 1000
+
+
+def test_sharded_filters_launch_the_candidate_kernels(dev):
+    """On a mesh of four entries of the card the sharded fingerprint search
+    selects each shard's candidates with S1 (its verify stays on the
+    host), and the sharded cascade runs S1, S3 and S4 per shard; both equal
+    the same call on four CPU entries."""
+    from ahocorasick_tpu_torch.ops import candidate_kernels as CK
+    from ahocorasick_tpu_torch.ops import cascade as TC
+    from ahocorasick_tpu_torch.parallel import shard as SH
+
+    card, cpu = SH.Mesh([dev] * 4), SH.Mesh(["cpu"] * 4)
+    big = _cascade_names(300)
+    hb = _hay(1 << 19, 18, big)
+    cpats = _cascade_names(3000)
+    hc = _hay(1 << 19, 19, cpats)
+    for make, pats, hay, run, stages in (
+            (TF.FingerprintEngine, big, hb, SH.sharded_fp_match_pairs,
+             (1, 0, 0, 0)),
+            (TC.CascadeEngine, cpats, hc, SH.sharded_cascade_match_pairs,
+             (1, 0, 1, 1))):
+        want = run(make(pats, False, "cpu"), hay, cpu)
+        eng = make(pats, False, dev)
+        CK.reset_counts()
+        got = run(eng, hay, card)
+        launched = (CK.select_launches, CK.verify_launches,
+                    CK.probe_launches, CK.long_launches)
+        # One launch per shard and pass, the same number of passes each.
+        assert all((v > 0 and v % 4 == 0) == bool(s)
+                   for v, s in zip(launched, stages)), launched
+        assert len(got[0]) > 10
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y)

@@ -17,7 +17,9 @@ import torch
 
 import ahocorasick_tpu.ops.fingerprint as JF
 import ahocorasick_tpu_torch.ops.fingerprint as TF
+from ahocorasick_tpu_torch.ops import candidate_kernels as CK
 from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
+from ahocorasick_tpu_torch.ops.compaction import select_matches
 
 NAMES = [b"Sherlock Holmes", b"John Watson", b"Irene Adler",
          b"Inspector Lestrade", b"Professor Moriarty"]
@@ -133,7 +135,7 @@ def test_mul32_wraps_like_uint32():
                         np.array([0, 1, 0xFFFFFFFF], np.uint64)])
     for c in (1, 0xFFFFFFFF, 0x9E3779B1, int(rng.integers(1, 1 << 32))):
         want = (x.astype(np.uint32) * np.uint32(c)).astype(np.int64)
-        got = TF._mul32(torch.from_numpy(x.astype(np.int64)), c)
+        got = CK.mul32(torch.from_numpy(x.astype(np.int64)), c)
         np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -227,8 +229,8 @@ def test_windows_equal_jax(fold):
     e_pos = torch.cat([pos[live], torch.tensor(
         [0, 1, 7, 8, len(hay) - 1, len(hay), total - 1])])
     buf = te._pack(hay, ph.L, ph.tiles, te.pad_byte or 0)
-    got = TF._gather_windows(TF._verify_buffer(torch.from_numpy(buf), W,
-                                               fold), e_pos, W)
+    got = CK.gather_windows(TF._verify_buffer(torch.from_numpy(buf), W,
+                                              fold), e_pos, W)
     want = JF._gather_windows(JF._unpack_fold(jnp.asarray(buf), W, fold),
                               jnp.asarray(e_pos.numpy(), jnp.int32), W)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -240,9 +242,10 @@ def test_windows_equal_jax(fold):
                               "baked-count"])
 def test_device_verify_equals_fused_jits(baked, extract):
     """(ncand, total, out_pid, out_end) of `_fp_verified_jit` /
-    `_fp_verified_generic_jit` against the port's bitmap, rank-select,
-    windows and `_device_verify`, element for element (both compact the
-    per-class matches in the same order)."""
+    `_fp_verified_generic_jit` against the port's bitmap, the candidate
+    selection (S1), the device verify (S2) and the matches' compaction,
+    element for element (both compact the per-class matches in the same
+    order)."""
     te, je, ph, hay = _layouts("dict_ci")
     t, dv = je.tables, je.dv
     n = len(hay)
@@ -263,17 +266,15 @@ def test_device_verify_equals_fused_jits(baked, extract):
     lo, hi, sm, em = te._args()
     _, bmp = FK.fp_bitmap_plain(lo, hi, sm, em, ph.halo_a, ph.body,
                                 None if baked else (0, n))
-    ncand, e_pos, live = TF._rank_select(bmp, ph.L, cap_c)
-    wnd = TF._gather_windows(
-        TF._verify_buffer(torch.from_numpy(buf), te.dv.W, True), e_pos,
-        te.dv.W)
-    total, pid, end = TF._device_verify(
-        wnd, e_pos, live, n, te.dv.device_tables(torch.device("cpu")),
-        extract, cap_m)
-    assert ncand == int(res[0]) < cap_c
-    assert total == int(res[1]) > 100
+    ncand, e_pos, live = CK.cand_select(bmp, ph.L, cap_c)
+    ok, pid, end, total = CK.fp_verify(
+        TF._verify_buffer(torch.from_numpy(buf), te.dv.W, True), e_pos, live,
+        n, te.dv.device_tables(torch.device("cpu")), te.dv.W, extract)
+    assert int(ncand) == int(res[0]) < cap_c
+    assert int(total) == int(res[1]) > 100
     if extract:
-        assert total < cap_m
+        assert int(total) < cap_m
+        pid, end = select_matches(ok, pid, end, cap_m)
         np.testing.assert_array_equal(pid.numpy(), np.asarray(res[2]))
         np.testing.assert_array_equal(end.numpy(), np.asarray(res[3]))
 
