@@ -17,7 +17,8 @@ crate (BurntSushi/aho-corasick v1.1.3), on an NVIDIA GPU:
     then exact-key probes and verification in torch); the kernels cut each
     haystack stream into segments, one CUDA thread each, on the shared
     shift-AND core (csrc/shift_and.cuh). The blocked device DFA walk
-    (ops/block_scan.py) backs the forced `dfa-scan` / `device-only` modes.
+    (ops/block_scan.py; W1/W2 in csrc/dfa_walk.cu, one thread per
+    sub-block) backs the forced `dfa-scan` / `device-only` modes.
   - Standard / leftmost-first / leftmost-longest semantics, overlapping
     search, anchored search, ASCII case folding, replacement and stream
     search/replace all reproduce the reference's (pattern, start, end)

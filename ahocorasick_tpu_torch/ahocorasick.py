@@ -516,15 +516,17 @@ class AhoCorasick:
         # The blocked device DFA walk: only compacted (end, state) pairs
         # come back from the device.
         if len(hs) >= (1 << 16) and not getattr(self, "_scan_warned", False):
-            # A correctness backend, one device operation per byte step of
-            # a block; reaching it on a large haystack means a forced
-            # engine knob (or a missing native library) routed production
-            # traffic here. Warn once per searcher.
+            # One kernel (W1, a dependent table gather per byte) and a
+            # compaction over the full state array: well behind the
+            # filter engines, so reaching it on a large haystack means a
+            # forced engine knob (or a missing native library) routed
+            # production traffic here. Warn once per searcher.
             self._scan_warned = True
             log.logger.warning(
                 "blocked device DFA walk engaged for a %d-byte haystack; "
-                "this is a correctness backend — prefer engine='auto' "
-                "(bitap/fingerprint/cascade/native selection)", len(hs),
+                "a gather per byte, not the production route — prefer "
+                "engine='auto' (bitap/fingerprint/cascade/native "
+                "selection)", len(hs),
             )
         ends, sids = self._device_automaton().match_positions(hs)
         return semantics.extract_match_set_from_positions(

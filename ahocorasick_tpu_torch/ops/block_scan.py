@@ -15,11 +15,19 @@ independently by walking from the start state over the block plus a
 each one gather ``trans_flat[state * A + class]`` over the ``[B]`` state
 vector. Block sizes, halo rounding and padding are the JAX package's.
 
-Every step is a separate device operation, so this walk is a *correctness*
-backend: it serves the forced ``dfa-scan`` / ``device-only`` modes and the
-facade's last resort when the native walk is unavailable. Production
-traffic takes the bit-parallel, staged, fingerprint and cascade engines, or
-the native interleaved C++ walk (automata/native.py).
+On the card each walk is one kernel (ops/walk_kernels.py, csrc/dfa_walk.cu),
+as in the JAX package it is one compiled ``lax.scan``: W1 writes the
+per-position states (``match_positions``, ``scan_states``), W2 sums the
+match counts inside the walk with no state array (``count_matches``); the
+kernels cut the buffer into finer sub-blocks than the JAX layout, which the
+suffix property allows. On the CPU the plain versions walk the JAX layout,
+one torch step per byte of a block. The walk is still not the production
+route: it serves the forced ``dfa-scan`` / ``device-only`` modes and the
+facade's last resort when the native walk is unavailable, and a gather per
+byte stays far below the filter engines (PERF.md: the dict1k 64 MiB count,
+its kernel against the fingerprint route's). Production traffic takes the
+bit-parallel, staged, fingerprint and cascade engines, or the native
+interleaved C++ walk (automata/native.py).
 
 The output is the full per-position state sequence, from which the
 entire overlapping match set is derived (states index CSR match lists);
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from ..automata.dfa import DenseDFA
+from . import walk_kernels as WK
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,6 +68,19 @@ def choose_block_len(n: int, halo: int) -> int:
         lanes *= 2
     lanes = min(lanes, 8192)
     return max(n // lanes, 128)
+
+
+def pack_haystack(haystack: bytes, halo: int):
+    """The walk's host buffer: the haystack zero-padded to its size bucket,
+    rounded up to whole blocks; returns (buf uint8, n, block_len, halo),
+    the halo clamped to the bucket."""
+    n = len(haystack)
+    padded = _size_bucket(n)
+    halo = min(halo, padded)
+    block_len = choose_block_len(padded, halo)
+    buf = np.zeros(_round_up(padded, block_len), dtype=np.uint8)
+    buf[:n] = np.frombuffer(haystack, dtype=np.uint8)
+    return buf, n, block_len, halo
 
 
 def scan_states_host(dfa: DenseDFA, haystack: bytes) -> np.ndarray:
@@ -106,20 +128,14 @@ class DeviceAutomaton:
     def _prepare(self, haystack: bytes):
         """Pad the haystack into a bucketed device buffer; returns
         (buf, n, block_len, halo)."""
-        n = len(haystack)
-        padded = _size_bucket(n)
-        halo = min(self.halo, padded)
-        block_len = choose_block_len(padded, halo)
-        padded = _round_up(padded, block_len)
-        buf = np.zeros(padded, dtype=np.uint8)
-        buf[:n] = np.frombuffer(haystack, dtype=np.uint8)
+        buf, n, block_len, halo = pack_haystack(haystack, self.halo)
         return torch.from_numpy(buf).to(self.device), n, block_len, halo
 
     def _states(self, haystack: bytes) -> Tuple[torch.Tensor, int]:
         buf, n, block_len, halo = self._prepare(haystack)
-        states = _scan_states(self.trans_flat, self.classes, buf,
-                              self.alphabet_len, self.start_id, block_len,
-                              halo)
+        states = WK.walk_states(self.trans_flat, self.classes, buf,
+                                self.alphabet_len, self.start_id, block_len,
+                                halo)
         return states, n
 
     def match_positions(self, haystack: bytes):
@@ -149,7 +165,8 @@ class DeviceAutomaton:
         return states[:n].cpu().numpy()
 
     def count_matches(self, haystack: bytes) -> int:
-        """Total number of matches (overlapping semantics), device-reduced."""
+        """Total number of matches (overlapping semantics), summed inside
+        the walk (W2 on the card): no state array is stored."""
         extra = 0
         # position 0 (start state) contributes when the empty pattern matches
         if 2 <= self.start_id <= self.max_match_id:
@@ -157,52 +174,11 @@ class DeviceAutomaton:
                         - self.dfa.match_starts[self.start_id])
         if len(haystack) == 0:
             return extra
-        states, n = self._states(haystack)
-        return _count_matches(states, n, self.match_count) + extra
-
-
-def _scan_states(trans_flat: torch.Tensor, classes: torch.Tensor,
-                 buf: torch.Tensor, alphabet_len: int, start_id: int,
-                 block_len: int, halo: int) -> torch.Tensor:
-    """Per-position states [n_pad] int32 of the uint8 buffer ``buf``
-    (length a multiple of ``block_len``).
-
-    Block b walks the ``halo`` bytes before it, then its own ``block_len``
-    bytes, recording each state. Halo steps that fall before the buffer's
-    start are skipped (the state stays the start state), as the JAX count
-    jit's ``valid = idx >= 0`` does: with a halo longer than a block this
-    covers the first ``ceil(halo / block_len)`` blocks, not block 0 only."""
-    c = classes[buf.to(torch.int64)]  # [n_pad] int32
-    nb = c.shape[0] // block_len
-    body = c.reshape(nb, block_len).T.contiguous()  # [L, B]
-    s = torch.full((nb,), start_id, dtype=torch.int32, device=c.device)
-    if halo:
-        # Block b's halo step t reads c[b*L - halo + t], also where the
-        # halo is longer than a block (the JAX package's roll-and-reshape
-        # windows cover halo <= block_len only).
-        starts = torch.arange(nb, device=c.device) * block_len
-        offs = torch.arange(-halo, 0, device=c.device)
-        idx = starts[None, :] + offs[:, None]  # [halo, B]
-        valid = idx >= 0
-        halo_part = c[idx.clamp_min(0)]
-        for t in range(halo):
-            s2 = torch.index_select(
-                trans_flat, 0, torch.add(halo_part[t], s, alpha=alphabet_len))
-            s = torch.where(valid[t], s2, s)
-    states = torch.empty((block_len, nb), dtype=torch.int32, device=c.device)
-    for t in range(block_len):
-        torch.index_select(trans_flat, 0,
-                           torch.add(body[t], s, alpha=alphabet_len),
-                           out=states[t])
-        s = states[t]
-    return states.T.reshape(-1)
-
-
-def _count_matches(states: torch.Tensor, n: int,
-                   match_count: torch.Tensor) -> int:
-    """Matches ending at the first n positions: the sum of each state's
-    match-list length (the JAX package sums the same inside its walk)."""
-    return int(match_count[states[:n].to(torch.int64)].sum())
+        buf, n, block_len, halo = self._prepare(haystack)
+        total = WK.walk_count(self.trans_flat, self.classes, buf,
+                              self.alphabet_len, self.start_id, block_len,
+                              halo, self.match_count, 0, n)
+        return int(total) + extra
 
 
 def _compact_matches(states: torch.Tensor, n: int, max_match_id: int):

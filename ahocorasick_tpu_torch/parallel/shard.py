@@ -52,12 +52,8 @@ from ..ops import bitap_kernels as _bk
 from ..ops import fingerprint_kernels as _fk
 from ..ops import staged_kernels as _sk
 from ..ops.bitap import LANES, _pow2, _to_stream_major, decode_match_words
-from ..ops.block_scan import (
-    DeviceAutomaton,
-    _round_up,
-    _scan_states,
-    choose_block_len,
-)
+from ..ops import walk_kernels as _wk
+from ..ops.block_scan import DeviceAutomaton, _round_up, choose_block_len
 from ..ops.compaction import select_matches, select_nonzero_words
 
 
@@ -142,9 +138,9 @@ def sharded_count_matches(
     mesh: Optional[Mesh] = None,
 ) -> int:
     """Total overlapping-match count, sharded across the mesh: the blocked
-    device DFA walk (torch gathers, no kernel) over each shard's row,
-    counting the positions the shard owns; the partial counts are summed
-    on the mesh's first device."""
+    device DFA walk's count (W2, the port of ``count_kernel``) over each
+    shard's row, its window the positions the shard owns, no state array;
+    the partial counts are summed on the mesh's first device."""
     if mesh is None:
         mesh = make_mesh()
     ndev = mesh.size
@@ -167,10 +163,10 @@ def sharded_count_matches(
     for i, d in enumerate(mesh.devices):
         trans_flat, classes, match_count = tables[d]
         row = torch.from_numpy(lay.rows[i]).to(d)
-        states = _scan_states(trans_flat, classes, row, dev.alphabet_len,
-                              dev.start_id, block_len, halo)
-        own = states[lay.n0[i]:lay.n1[i]].to(torch.int64)
-        counts.append(match_count[own].sum())
+        counts.append(_wk.walk_count(trans_flat, classes, row,
+                                     dev.alphabet_len, dev.start_id,
+                                     block_len, halo, match_count,
+                                     lay.n0[i], lay.n1[i]))
     return _psum(counts, mesh) + extra
 
 

@@ -4,9 +4,9 @@
 
 Runs `ahocorasick_tpu_torch` (never JAX, never the JAX package) on the
 card: builds the Hopper kernels from csrc/bitap.cu (G1, G2), csrc/staged.cu
-(G3, G4), csrc/fingerprint.cu (G5, G6) and csrc/candidates.cu (S1-S4: the
-candidate stages after G5/G6) with nvcc, one compiler per source, all
-started together; drives the facade at full size on each route
+(G3, G4), csrc/fingerprint.cu (G5, G6), csrc/candidates.cu (S1-S4: the
+candidate stages after G5/G6) and csrc/dfa_walk.cu (W1, W2: the blocked
+DFA walk) with nvcc, one compiler per source, all started together; drives the facade at full size on each route
 the JAX facade takes, every engine mode included, and the packed searcher,
 the debug CLI and sharded search over a mesh; holds every result
 against host truth (`bytes.find`, or the port's native C++ walk for the
@@ -60,11 +60,15 @@ facade call; kernel-vs-plain launches are not counted):
      bit-parallel engine: G6 and G2 in one count; the extraction's side
      chunks add G1), and a forced engine="cascade" set with no pad byte
      over 4 MiB (G5 over the window (0, n));
- 11. the blocked device DFA walk (engine="dfa-scan", no kernel: torch
-     gathers) over the 64 MiB dict1k text and, with a halo longer than a
-     block, over a 128 KiB haystack that fills its bucket; and
-     engine="device-only" over the dict1k text, which takes the
-     fingerprint engine (G6, S1, S2; the S launches held as in phase 6);
+ 11. the blocked device DFA walk (engine="dfa-scan"): the dict1k count
+     (W2) and find_overlapping_iter (W1) over the 64 MiB text, the five
+     names' count over the 64 MiB English-like text (W2, its table in
+     shared memory) and, with a halo longer than a block, count and
+     extraction over a 128 KiB haystack that fills its bucket; every W
+     launch held against its plain version on the call's own inputs, and
+     the plain walk never run inside a call; and engine="device-only"
+     over the dict1k text, which takes the fingerprint engine (G6, S1,
+     S2; the S launches held as in phase 6);
  12. the packed searcher (`ahocorasick_tpu_torch.packed`) on the card:
      `Searcher.new` of the five names over 16 MiB (G2 chunks and a G1
      tail), a 128-name set of over 2,048 pattern bytes over 16 MiB of
@@ -81,7 +85,8 @@ facade call; kernel-vs-plain launches are not counted):
      card where there are several): the staged count (G3, G4), the
      bit-parallel count and pairs (G1), the fingerprint pairs (G5, then
      S1 per shard, host verify), the cascade pairs (G6, S1, S3, S4 per
-     shard) and the stream replace (G1), each equal to the single-device
+     shard), the stream replace (G1) and the device walk's count of
+     dict1k over 64 MiB (W2 per shard), each equal to the single-device
      truth and timed beside the single-device call; each kernel held
      against its plain version on the row and window of shard 1 and of
      the last shard (S1-S4 of shard 0 too), as the call launched it;
@@ -94,12 +99,14 @@ facade call; kernel-vs-plain launches are not counted):
      whole facade calls (host clock, median of 7) with a torch.profiler
      trace of one call each for the device's idle share (not measured
      where the trace misses the haystack's upload or reaches outside the
-     call; the device walk's call, with its many launches, is traced
-     last); the parts of the
+     call); the parts of the
      64 MiB staged counts (five names, 100 words), of the dict100k
-     cascade count and extraction and of the dict1k fingerprint count and
-     extraction, with the S kernels as their steps; S1-S4 timed at the
-     facade's shapes (dict100k, dict1k) beside their byte bounds;
+     cascade count and extraction, of the dict1k fingerprint count and
+     extraction, with the S kernels as their steps, and of the dict1k
+     device walk's count and extraction (pack, upload, W2 or W1,
+     compaction, decode); S1-S4 timed at the facade's shapes (dict100k,
+     dict1k) beside their byte bounds; W1 and W2 at the facade's shapes
+     (dict1k and five names over 64 MiB) with their thread plans;
  16. a `kernels` JSON line (launches from the facade calls, errors, times,
      bounds), then the card's name and power limit, then the final
      `{"ok": true, ...}` line.
@@ -163,7 +170,8 @@ CASCADE_PATTERNS = 100_000  # dict100k (the JAX package's bench.py:271-327)
 CASCADE_N = 64 * MIB       # its haystack
 REPS = 20                  # kernel launches per timed CUDA graph
 RUNS = 7                   # facade calls per end-to-end median
-KERNELS = ("G1", "G2", "G3", "G4", "G5", "G6", "S1", "S2", "S3", "S4")
+KERNELS = ("G1", "G2", "G3", "G4", "G5", "G6", "S1", "S2", "S3", "S4",
+           "W1", "W2")
 # The candidate-stage kernels each engine runs after its bitmap.
 FP_STAGES = ("S1", "S2")
 
@@ -860,6 +868,7 @@ def main() -> int:
             sharded_bitap_count,
             sharded_bitap_match_pairs,
             sharded_cascade_match_pairs,
+            sharded_count_matches,
             sharded_fp_match_pairs,
             sharded_staged_count,
             sharded_stream_replace_all,
@@ -873,6 +882,7 @@ def main() -> int:
         from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
         from ahocorasick_tpu_torch.ops import staged as TS
         from ahocorasick_tpu_torch.ops import staged_kernels as SK
+        from ahocorasick_tpu_torch.ops import walk_kernels as WK
         from ahocorasick_tpu_torch.ops.compaction import (
             select_matches,
             select_nonzero_words,
@@ -905,10 +915,10 @@ def main() -> int:
 
     # 2. Build: one nvcc per source, all started together ---------------------
     t0 = time.time()
-    libs = (TK.LIBRARY, SK.LIBRARY, FK.LIBRARY, CK.LIBRARY)
+    libs = (TK.LIBRARY, SK.LIBRARY, FK.LIBRARY, CK.LIBRARY, WK.LIBRARY)
     built = build_all(libs)
-    log(f"[build] bitap.cu, staged.cu, fingerprint.cu, candidates.cu -> "
-        f"sm_90a in "
+    log(f"[build] bitap.cu, staged.cu, fingerprint.cu, candidates.cu, "
+        f"dfa_walk.cu -> sm_90a in "
         f"{time.time() - t0:.1f} s (in parallel: " + ", ".join(
             f"{k}.cu {v:.1f} s" for k, v in built.items()) + ")")
     report["build_s"] = built
@@ -972,27 +982,61 @@ def main() -> int:
 
     errs = {k: 0 for k in KERNELS}
     launches = {k: 0 for k in KERNELS}
+    # W1 and W2 each have two instances, the table in shared memory or
+    # read through the read-only path, chosen by its size; each instance
+    # keeps its own launches and error. A call walks one automaton, so
+    # all its W launches take one instance, the one of the last launch.
+    walk_insts = {(k, sh): dict(launches=0, err=0)
+                  for k in ("W1", "W2") for sh in (False, True)}
+
+    def walk_inst(k):
+        return walk_insts[k, (WK.walk_shape if k == "W1"
+                              else WK.count_shape)[4]]
 
     def counts():
         return dict(G1=TK.generic_launches, G2=TK.baked_launches,
                     G3=SK.flags_launches, G4=SK.gathered_launches,
                     G5=FK.generic_launches, G6=FK.baked_launches,
                     S1=CK.select_launches, S2=CK.verify_launches,
-                    S3=CK.probe_launches, S4=CK.long_launches)
+                    S3=CK.probe_launches, S4=CK.long_launches,
+                    W1=WK.walk_launches, W2=WK.count_launches)
+
+    plain_walks = {"walk_states_plain": 0, "walk_count_plain": 0}
 
     def drive(fn, expect):
         """Run one main-path facade call with every launch count set to 0
         just before it and read just after; the counts are kept. Raises
-        unless exactly the kernels in ``expect`` were launched."""
+        unless exactly the kernels in ``expect`` were launched, or where
+        the call ran a plain version of the walk (the wrappers' CPU
+        path)."""
         TK.reset_counts()
         SK.reset_counts()
         FK.reset_counts()
         CK.reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
+        WK.reset_counts()
+        real_plain = {k: getattr(WK, k) for k in plain_walks}
+
+        def plain_spy(k):
+            def call(*a):
+                plain_walks[k] += 1
+                return real_plain[k](*a)
+            return call
+        for k in plain_walks:
+            plain_walks[k] = 0
+            setattr(WK, k, plain_spy(k))
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            for k, f in real_plain.items():
+                setattr(WK, k, f)
+        if any(plain_walks.values()):
+            raise AssertionError(f"the call ran a plain walk: {plain_walks}")
         got = counts()
         for k, v in got.items():
             launches[k] += v
+            if k in ("W1", "W2") and v:
+                walk_inst(k)["launches"] += v
         ran = {k for k, v in got.items() if v}
         if ran != set(expect):
             raise AssertionError(f"launched {got}, expected {expect}")
@@ -1017,7 +1061,10 @@ def main() -> int:
                                    for a, b in zip(g, w)):
             raise AssertionError(f"{k}: outputs differ in kind from the "
                                  f"plain version's")
-        errs[k] = max(errs[k], max_abs_err(g, w))
+        e = max_abs_err(g, w)
+        errs[k] = max(errs[k], e)
+        if k in ("W1", "W2"):
+            walk_inst(k)["err"] = max(walk_inst(k)["err"], e)
 
     # Each kernel's wrapper (module, name) and its plain version, which
     # takes the wrapper's own arguments.
@@ -1034,6 +1081,8 @@ def main() -> int:
         "S2": (CK, "fp_verify", CK.fp_verify_plain),
         "S3": (CK, "cascade_probe", CK.cascade_probe_plain),
         "S4": (CK, "cascade_long_verify", CK.cascade_long_verify_plain),
+        "W1": (WK, "walk_states", lambda *a: WK.walk_states_plain(*a[:7])),
+        "W2": (WK, "walk_count", lambda *a: WK.walk_count_plain(*a[:10])),
     }
 
     def drive_held(fn, expect, only=None):
@@ -1524,15 +1573,37 @@ def main() -> int:
 
     # 11. The blocked device DFA walk, and device-only ------------------------
     t0 = time.time()
+    # Every W launch of these calls is held against its plain version on
+    # its own inputs (one launch a call); drive raises where a call ran
+    # the plain walk itself.
     ac_w = AhoCorasick(dict1k, ascii_case_insensitive=True, device=dev,
                        engine="dfa-scan")
-    got, _ = drive(lambda: ac_w.count_matches(hay_d), [])
+    (got, cw), hw = drive_held(lambda: ac_w.count_matches(hay_d), ("W2",),
+                               only=("W2",))
     check("dfa-scan count 64 MiB", got, len(truth_d))
-    got_w, _ = drive(lambda: triples(ac_w.find_overlapping_iter(hay_d)), [])
+    walk_plan_d = WK.count_shape
+    (got_w, cwx), hwx = drive_held(
+        lambda: triples(ac_w.find_overlapping_iter(hay_d)), ("W1",),
+        only=("W1",))
     check("dfa-scan find_overlapping_iter 64 MiB", got_w, truth_d)
     walk = ac_w._dev_automaton
     assert walk is not None
     _, _, walk_L, walk_H = walk._prepare(b"x" * len(hay_d))
+    ac_w5 = AhoCorasick(names, device=dev, engine="dfa-scan")
+    (got, cw5), hw5 = drive_held(lambda: ac_w5.count_matches(hay64),
+                                 ("W2",), only=("W2",))
+    check("dfa-scan count, five names, 64 MiB", got, len(truth64))
+    walk5 = ac_w5._dev_automaton
+    walk_plan_5 = WK.count_shape
+    if not walk_plan_5[4]:
+        raise AssertionError(f"the five names' table "
+                             f"({walk5.trans_flat.numel() * 4} B) was not "
+                             f"in shared memory: {walk_plan_5}")
+    for name, c in (("dict1k count", cw), ("dict1k find_overlapping_iter",
+                                           cwx), ("five names count", cw5)):
+        log(f"[device walk] {name}: launches " + ", ".join(
+            f"{k} {v}" for k, v in c.items() if v) + ", plain walks "
+            f"{sum(plain_walks.values())}")
     # A halo longer than a block (a 200-byte pattern, 128-byte blocks) on
     # a haystack that fills its bucket: the first blocks' halo steps
     # before the buffer's start are skipped, not wrapped onto its tail.
@@ -1541,9 +1612,13 @@ def main() -> int:
     truth_h = triples(AhoCorasick(long_h, device="cpu",
                                   device_threshold=1 << 62)
                       .find_overlapping_iter(hay_h))
-    got, _ = drive(lambda: ac_h.count_matches(hay_h), [])
+    (got, _), hh1 = drive_held(lambda: ac_h.count_matches(hay_h), ("W2",),
+                               only=("W2",))
     check("dfa-scan count, halo > block", got, len(truth_h))
-    got, _ = drive(lambda: triples(ac_h.find_overlapping_iter(hay_h)), [])
+    walk_plan_h = WK.count_shape
+    (got, _), hh2 = drive_held(
+        lambda: triples(ac_h.find_overlapping_iter(hay_h)), ("W1",),
+        only=("W1",))
     check("dfa-scan find_overlapping_iter, halo > block", got, truth_h)
     _, _, hl, hh = ac_h._dev_automaton._prepare(hay_h)
     assert hh > hl and len(truth_h) == len(hay_h) - 199
@@ -1557,13 +1632,18 @@ def main() -> int:
         ("G6",) + FP_STAGES, only=FP_STAGES)
     check("device-only find_overlapping_iter 64 MiB", got_o, truth_d)
     assert ac_o._fp is not None and ac_o._dev_automaton is None
-    log(f"[device walk] dict1k engine='dfa-scan', {len(hay_d)} B: count and "
-        f"find_overlapping_iter = native ({walk.num_states} states x "
-        f"{walk.alphabet_len} classes, blocks of {walk_L} B + a {walk_H}-B "
-        f"halo, no kernel); {len(hay_h)} B of b'a' against a 200-byte "
-        f"pattern (blocks of {hl} B + a {hh}-B halo): {len(truth_h)} matches "
-        f"= native; engine='device-only': the fingerprint engine "
-        f"(G6, S1, S2) = native, S1/S2 = plain at launches {ho1}, {ho2} "
+    log(f"[device walk] dict1k engine='dfa-scan', {len(hay_d)} B: count (W2) "
+        f"and find_overlapping_iter (W1) = native ({walk.num_states} states "
+        f"x {walk.alphabet_len} classes, JAX layout blocks of {walk_L} B + a "
+        f"{walk_H}-B halo; kernel plan (bytes, threads, sub-block, halo, "
+        f"table in shared memory) {walk_plan_d}); five names over "
+        f"{len(hay64)} B (W2, {walk5.num_states} states x "
+        f"{walk5.alphabet_len} classes, plan {walk_plan_5}) = truth; "
+        f"{len(hay_h)} B of b'a' against a 200-byte pattern (blocks of {hl} "
+        f"B + a {hh}-B halo, plan {walk_plan_h}): {len(truth_h)} matches = "
+        f"native; W = plain at launches {hw}, {hwx}, {hw5}, {hh1}, {hh2}; "
+        f"engine='device-only': the fingerprint engine (G6, S1, S2) = "
+        f"native, S1/S2 = plain at launches {ho1}, {ho2} "
         f"({time.time() - t0:.1f} s)")
 
     # 12. The packed searcher --------------------------------------------------
@@ -1703,6 +1783,9 @@ def main() -> int:
                  chunk_size=MIB)), want_rep,
              lambda: replace(lambda out: stream_replace_all(
                  ac, io.BytesIO(hay16), out, reps, chunk_size=MIB))),
+            ("sharded_count_matches, dict1k, 64 MiB (device walk)", ["W2"],
+             lambda: sharded_count_matches(walk, hay_d, mesh),
+             len(truth_d), lambda: ac_w.count_matches(hay_d)),
         ]
         for name, expect, call, want, single in calls:
             (got, c), held = drive_held(call, expect)
@@ -1724,11 +1807,19 @@ def main() -> int:
     log(f"[shard] meshes {', '.join(str(m) for m in meshes)}: every call = "
         f"truth ({time.time() - t0:.1f} s)")
 
-    log(f"[launches] facade calls: " + ", ".join(
-        f"{k} {v}" for k, v in launches.items()))
+    log("[launches] facade calls: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + "; W by the table's place: "
+        + ", ".join(f"{k} {'shared' if sh else 'device'} {v['launches']}"
+                    for (k, sh), v in walk_insts.items()))
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} was never launched on a facade path")
+    for (k, sh), inst in walk_insts.items():
+        if inst["launches"] == 0:
+            raise AssertionError(f"{k} with the table in "
+                                 f"{'shared' if sh else 'device'} memory "
+                                 f"was never launched on a facade path")
 
     # 15. Timing ------------------------------------------------------------------
     def row(name, K, n, lanes, out_per_byte, kern, plain, seg, popc=True,
@@ -1874,6 +1965,14 @@ def main() -> int:
             len(hay_d), lambda: list(ac_d.find_overlapping_iter(hay_d))),
         e2e("dict1k count_matches 512 KiB (fingerprint: G5)", len(hay_d5),
             lambda: ac_d.count_matches(hay_d5)),
+        e2e("dict1k count_matches 64 MiB, engine='dfa-scan' (device walk: "
+            "W2)", len(hay_d), lambda: ac_w.count_matches(hay_d)),
+        e2e("dict1k find_overlapping_iter 64 MiB, engine='dfa-scan' (device "
+            "walk: W1)", len(hay_d),
+            lambda: list(ac_w.find_overlapping_iter(hay_d))),
+        e2e("five names count_matches 64 MiB, engine='dfa-scan' (device "
+            "walk: W2, table in shared memory)", len(hay64),
+            lambda: ac_w5.count_matches(hay64)),
         e2e("dict100k count_matches 64 MiB (cascade: G6)", len(hay_c),
             lambda: ac_c.count_matches(hay_c)),
         e2e("dict100k find_overlapping_iter 64 MiB (cascade: G6)",
@@ -1890,10 +1989,6 @@ def main() -> int:
         e2e("100 words + LONG find_overlapping_iter 16 MiB (staged: G3, G4 "
             "limb groups)", len(hay_wl),
             lambda: list(ac_wl.find_overlapping_iter(hay_wl))),
-        # Last: the trace of the call after it was seen to miss its
-        # upload copy.
-        e2e("dict1k count_matches 64 MiB, engine='dfa-scan' (device walk)",
-            len(hay_d), lambda: ac_w.count_matches(hay_d)),
     ]
 
     # The 64 MiB count of the 128-word set (K = 103), RUNS times, each run
@@ -2284,12 +2379,160 @@ def main() -> int:
             f"{k} {v:.3f} ms" for k, v in stage_ms.items()) + f" | {card}")
     report["stage_ms_after_G6"] = stage_ms
 
+    # The device walk's calls, step by step (dict1k, 64 MiB; host clock, a
+    # synchronise after each step, medians of RUNS): the count packs,
+    # uploads, runs W2 and reads one scalar; the extraction packs,
+    # uploads, runs W1, compacts the match states (torch.nonzero) and
+    # reads them, and decodes them into the match set.
+    from ahocorasick_tpu_torch import semantics as TSEM
+    from ahocorasick_tpu_torch.ops import block_scan as TBS
+    n_w = len(hay_d)
+    w_steps = {"count": ("pack", "upload", "W2_and_read"),
+               "extract": ("pack", "upload", "W1", "compaction_and_read",
+                           "decode")}
+    wparts = {"count_matches": [], "find_overlapping_iter": []}
+    wparts.update({f"{m}_{k}": [] for m, ks in w_steps.items() for k in ks})
+    for _ in range(RUNS):
+        wparts["count_matches"].append(
+            host_ms(lambda: ac_w.count_matches(hay_d)))
+        wparts["find_overlapping_iter"].append(
+            host_ms(lambda: list(ac_w.find_overlapping_iter(hay_d))))
+        for mode, steps in w_steps.items():
+            torch.cuda.synchronize()
+            marks = [time.perf_counter()]
+
+            def mark():
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            buf, _, L_w, halo_w = TBS.pack_haystack(hay_d, walk.halo)
+            mark()
+            buf_t = torch.from_numpy(buf).to(dev)
+            mark()
+            wa = (walk.trans_flat, walk.classes, buf_t, walk.alphabet_len,
+                  walk.start_id, L_w, halo_w)
+            if mode == "count":
+                total = int(WK.walk_count(*wa, walk.match_count, 0, n_w))
+                mark()
+                assert total == len(truth_d)
+            else:
+                states = WK.walk_states(*wa)
+                mark()
+                pos, sids = TBS._compact_matches(states, n_w,
+                                                 walk.max_match_id)
+                ends, sids = pos.cpu().numpy() + 1, sids.cpu().numpy()
+                mark()
+                TSEM.extract_match_set_from_positions(walk.dfa, ends, sids,
+                                                      0)
+                mark()
+                assert len(ends) <= len(truth_d)
+                del states, pos
+            for k, a, b in zip(steps, marks, marks[1:]):
+                wparts[f"{mode}_{k}"].append((b - a) * 1e3)
+            del buf_t
+    wmed = {k: float(np.median(v)) for k, v in wparts.items()}
+    log(f"[e2e parts] device walk dict1k 64 MiB, medians of {RUNS}: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in wmed.items())
+        + f" | {card}")
+    report["walk_parts"] = dict(runs_ms=wparts, median_ms=wmed)
+
+    # W1 and W2 at the facade's shapes: CUDA-graph time, the plain walk's
+    # time (the JAX layout, one torch step per byte of a block), and the
+    # bound: the larger of the bytes each must move (the positions it
+    # walks, the tables once, 256 classes; W1's states, W2's match counts
+    # and partials written once) over the memory rate, and its loads (per
+    # walked byte a class from shared memory and a table entry; W2 also a
+    # match count) over LDS_PER_CLK loads per SM and clock. The halo's
+    # warm-up bytes are layout overhead, charged nothing. No PyTorch call
+    # computes a DFA walk (library: none).
+    def walk_row(name, k, wa, window, per_call):
+        if k == "W2":
+            fn = lambda: WK.walk_count(*wa, *window)  # noqa: E731
+            plain = lambda: WK.walk_count_plain(*wa, *window)  # noqa: E731
+        else:
+            fn = lambda: WK.walk_states(*wa)  # noqa: E731
+            plain = lambda: WK.walk_states_plain(*wa)  # noqa: E731
+        err(k, fn(), plain())
+        shape = WK.count_shape if k == "W2" else WK.walk_shape
+        ms = kernel_ms(fn)
+        plain_ms = events_ms(plain)
+        n_b, sa, A = wa[2].numel(), wa[0].numel(), wa[3]
+        if k == "W2":
+            walked = window[2] - window[1]
+            out = 8 * (sa // A) + 8 * WK.count_blocks(n_b, shape[2])
+        else:
+            walked, out = n_b, 4 * n_b
+        moved = walked + 4 * sa + 4 * 256 + out
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        loads = walked * (3 if k == "W2" else 2)
+        t_ops = loads / (LDS_PER_CLK * sm_hz) * 1e3
+        bms, by = ((t_ops, "operations") if t_ops > t_bytes
+                   else (t_bytes, "bytes"))
+        r = dict(name=name, bytes=moved, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
+                 launches_per_call=per_call, library_ms=None,
+                 launch_shape=shape, threads=shape[1], P=None, Ls=shape[2],
+                 G=None, table_in_shared=shape[4])
+        log(f"[time] {name}: {ms:.4f} ms ({walked / ms / 1e6:.1f} GB/s), "
+            f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}: {moved} B, "
+            f"{loads} loads), {100 * bms / ms:.1f}% of bound; {shape[1]} "
+            f"threads of {shape[2]} B + a {shape[3]}-B halo, table "
+            f"{4 * sa} B in {'shared' if shape[4] else 'device'} memory; "
+            f"{per_call} launch per call; library: none | {card}")
+        return r
+
+    buf_d, n_dw, L_dw, H_dw = walk._prepare(hay_d)
+    wa_d = (walk.trans_flat, walk.classes, buf_d, walk.alphabet_len,
+            walk.start_id, L_dw, H_dw)
+    buf_5, n_5w, L_5w, H_5w = walk5._prepare(hay64)
+    wa_5 = (walk5.trans_flat, walk5.classes, buf_5, walk5.alphabet_len,
+            walk5.start_id, L_5w, H_5w)
+    rows.update({
+        "W2": walk_row(f"W2 walk_count dict1k 64 MiB, {walk.num_states} "
+                       f"states x {walk.alphabet_len} classes", "W2", wa_d,
+                       (walk.match_count, 0, n_dw), cw["W2"]),
+        "W2 names": walk_row(f"W2 walk_count five names 64 MiB, "
+                             f"{walk5.num_states} states x "
+                             f"{walk5.alphabet_len} classes", "W2", wa_5,
+                             (walk5.match_count, 0, n_5w), cw5["W2"]),
+        "W1": walk_row(f"W1 walk_states dict1k 64 MiB, {walk.num_states} "
+                       f"states x {walk.alphabet_len} classes", "W1", wa_d,
+                       (), cwx["W1"]),
+        "W1 names": walk_row(f"W1 walk_states five names 64 MiB, "
+                             f"{walk5.num_states} states x "
+                             f"{walk5.alphabet_len} classes", "W1", wa_5, (),
+                             cwx["W1"]),
+    })
+    # The table's place on one input: W2 over the five names' 64 MiB with
+    # the table in shared memory (the wrapper's choice) and read through
+    # the read-only path, alternating, three CUDA-graph means each.
+    wc5 = (walk5.trans_flat, walk5.classes, buf_5, walk5.alphabet_len,
+           walk5.start_id, H_5w, walk5.match_count, 0, n_5w,
+           WK.walk_plan(buf_5.numel(), H_5w))
+    place = {True: [], False: []}
+    for _ in range(3):
+        for sh in (True, False):
+            if int(WK._count_on_card(*wc5, sh)) != len(truth64):
+                raise AssertionError(f"W2 with shared={sh} != truth")
+            place[sh].append(
+                kernel_ms(lambda: WK._count_on_card(*wc5, sh)))
+    log(f"[time] W2 five names 64 MiB, the table's place on one input "
+        f"(alternating): shared memory "
+        + ", ".join(f"{t:.4f}" for t in place[True]) + " ms; read-only "
+        "path " + ", ".join(f"{t:.4f}" for t in place[False])
+        + f" ms | {card}")
+    report["walk_table_place_ms"] = dict(shared=place[True],
+                                         read_only=place[False])
+    del buf_d, buf_5
+
     # 16. Result lines ---------------------------------------------------------------
     def entry(k, fn, src, line, r):
+        inst = (walk_insts[k, r["table_in_shared"]] if k in ("W1", "W2")
+                else dict(launches=launches[k], err=errs[k]))
         return dict(name=f"{k} {fn}", route="cuda",
                     source=f"ahocorasick_tpu_torch/csrc/{src}",
-                    replaces=line, launches=launches[k],
-                    max_abs_err=errs[k], ms=r["ms"], plain_ms=r["plain_ms"],
+                    replaces=line, launches=inst["launches"],
+                    max_abs_err=inst["err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     share=r["share_of_bound"], library_ms=None,
                     shape=r["name"], threads=r["threads"], P=r["P"],
@@ -2315,6 +2558,14 @@ def main() -> int:
               "ahocorasick_tpu/ops/cascade.py:364", rows["S3"]),
         entry("S4", "cascade_long_verify", "candidates.cu",
               "ahocorasick_tpu/ops/cascade.py:395", rows["S4"]),
+        entry("W1", "walk_states", "dfa_walk.cu",
+              "ahocorasick_tpu/ops/block_scan.py:239", rows["W1"]),
+        entry("W1", "walk_states, table in shared memory", "dfa_walk.cu",
+              "ahocorasick_tpu/ops/block_scan.py:239", rows["W1 names"]),
+        entry("W2", "walk_count", "dfa_walk.cu",
+              "ahocorasick_tpu/ops/block_scan.py:286", rows["W2"]),
+        entry("W2", "walk_count, table in shared memory", "dfa_walk.cu",
+              "ahocorasick_tpu/ops/block_scan.py:286", rows["W2 names"]),
     ]
     # The limb-group rows beyond 64 limbs, G1-G4.
     for k, fn, src, line, row in (

@@ -967,3 +967,115 @@ def test_sharded_filters_launch_the_candidate_kernels(dev):
         assert len(got[0]) > 10
         for x, y in zip(got, want):
             np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The blocked DFA walk W1/W2 (csrc/dfa_walk.cu)
+# ---------------------------------------------------------------------------
+def _walk_case(dev, name):
+    """(device automaton, the walk's arguments on the JAX layout, n) of a
+    walk case: the five names (a table that fits shared memory), 600
+    names (one that does not), and a 200-byte pattern over b"a" that
+    fills its bucket (a halo longer than a block, R7)."""
+    from ahocorasick_tpu_torch.ops import block_scan as TBS
+
+    if name == "halo_over_block":
+        pats, hay = [b"a" * 200, b"ab"], b"a" * (128 << 10)
+    else:
+        pats = NAMES if name == "names" else _cascade_names(600)
+        hay = _hay(1 << 20, 21, pats)
+    da = TBS.DeviceAutomaton(AhoCorasick(pats, device="cpu")._dfa, dev)
+    buf, n, L, H = da._prepare(hay)
+    return da, (da.trans_flat, da.classes, buf, da.alphabet_len, da.start_id,
+                L, H), n
+
+
+@pytest.mark.parametrize("name", ["names", "names600", "halo_over_block"])
+def test_walk_kernels_equal_plain(dev, name):
+    """W1 and W2 against their plain versions on the same CUDA tensors,
+    with the table in shared memory (the five names, R7's set) or read
+    from device memory (600 names), over the whole buffer and over
+    windows."""
+    from ahocorasick_tpu_torch.ops import walk_kernels as WK
+
+    da, a, n = _walk_case(dev, name)
+    shared = name != "names600"
+    assert WK.table_in_shared(da.trans_flat) == shared
+    WK.reset_counts()
+    states = WK.walk_states(*a)
+    assert torch.equal(states, WK.walk_states_plain(*a))
+    assert WK.walk_shape[2:] == (WK.walk_plan(len(a[2]), a[6]), a[6], shared)
+    for n0, n1 in ((0, n), (0, 0), (n // 3, n - n // 5), (n - 1, n)):
+        got = WK.walk_count(*a, da.match_count, n0, n1)
+        want = WK.walk_count_plain(*a, da.match_count, n0, n1)
+        assert got.dtype == torch.int64 and int(got) == int(want)
+    assert WK.count_shape[2:] == WK.walk_shape[2:]
+    assert (WK.walk_launches, WK.count_launches) == (1, 4)
+
+
+@pytest.mark.parametrize("name", ["names", "names600", "halo_over_block"])
+def test_walk_kernels_on_the_jax_layout(dev, name):
+    """W1 and W2 through their private launches on the JAX layout's
+    blocks and on walk_plan's sub-blocks, with the table in each place it
+    fits, against the plain versions, over the whole buffer and a
+    window."""
+    from ahocorasick_tpu_torch.ops import walk_kernels as WK
+
+    da, a, n = _walk_case(dev, name)
+    trans, classes, buf, A, start, L, H = a
+    places = (True, False) if WK.table_in_shared(trans) else (False,)
+    want = WK.walk_states_plain(*a)
+    for sub in (L, WK.walk_plan(len(buf), H)):
+        for shared in places:
+            got = WK._states_on_card(trans, classes, buf, A, start, H, sub,
+                                     shared)
+            assert torch.equal(got, want), (sub, shared)
+            assert WK.walk_shape[2:] == (sub, H, shared)
+            for n0, n1 in ((0, n), (n // 3, n - n // 5)):
+                c = WK._count_on_card(trans, classes, buf, A, start, H,
+                                      da.match_count, n0, n1, sub, shared)
+                assert int(c) == int(WK.walk_count_plain(
+                    *a, da.match_count, n0, n1)), (sub, shared, n0, n1)
+
+
+def test_dfa_scan_facade_runs_the_walk_kernels(dev, monkeypatch):
+    """engine='dfa-scan' on the card: a count is one W2 launch, an
+    extraction one W1 launch, neither runs a plain walk; both equal the
+    same calls on the CPU."""
+    from ahocorasick_tpu_torch.ops import walk_kernels as WK
+
+    pats = _cascade_names(600)
+    hay = _hay(3 << 20, 22, pats)
+    card = AhoCorasick(pats, device=dev, engine="dfa-scan")
+    cpu = AhoCorasick(pats, device="cpu", device_threshold=1 << 62)
+
+    def refuse(*a):
+        raise AssertionError("a plain walk ran on the card's path")
+    monkeypatch.setattr(WK, "walk_states_plain", refuse)
+    monkeypatch.setattr(WK, "walk_count_plain", refuse)
+    WK.reset_counts()
+    want = [m.astuple() for m in cpu.find_overlapping_iter(hay)]
+    assert card.count_matches(hay) == len(want) > 40
+    assert (WK.walk_launches, WK.count_launches) == (0, 1)
+    assert [m.astuple() for m in card.find_overlapping_iter(hay)] == want
+    assert (WK.walk_launches, WK.count_launches) == (1, 1)
+    long = AhoCorasick([b"a" * 200, b"ab"], device=dev, engine="dfa-scan")
+    assert long.count_matches(b"a" * (128 << 10)) == (128 << 10) - 199
+
+
+def test_sharded_walk_count_launches_w2_per_shard(dev):
+    """sharded_count_matches on a mesh of four entries of the card: one
+    W2 launch per shard, equal to four CPU entries and to the facade."""
+    from ahocorasick_tpu_torch.ops import walk_kernels as WK
+    from ahocorasick_tpu_torch.parallel import shard as SH
+
+    pats = _cascade_names(600)
+    hay = _hay(1 << 20, 23, pats)
+    card = AhoCorasick(pats, device=dev)._device_automaton()
+    cpu = AhoCorasick(pats, device="cpu")
+    WK.reset_counts()
+    got = SH.sharded_count_matches(card, hay, SH.Mesh([dev] * 4))
+    assert WK.count_launches == 4
+    assert got == SH.sharded_count_matches(cpu._device_automaton(), hay,
+                                           SH.Mesh(["cpu"] * 4))
+    assert got == cpu.count_matches(hay) > 40

@@ -1,8 +1,9 @@
 """The port's blocked device DFA walk held against the JAX package's.
 
-The port's `DeviceAutomaton` and the JAX jits `_scan_states_jit`,
-`_count_matches_jit` and `_compact_matches_jit` (pure ``jnp``, no Pallas)
-walk the same DFA over the same padded buffer; both are also held against
+The port's `DeviceAutomaton` (its walk's plain versions, on the CPU) and
+the JAX jits `_scan_states_jit`, `_count_matches_jit` and
+`_compact_matches_jit` (pure ``jnp``, no Pallas) walk the same DFA over
+the same padded buffer; both are also held against
 `scan_states_host`. The facade's forced `dfa-scan` / `device-only` modes
 and its last resort without the native walk (where it used to raise) are
 held against the JAX facade and the oracle. Every output is an integer:
@@ -18,6 +19,7 @@ import ahocorasick_tpu as J
 import ahocorasick_tpu.ops.block_scan as JB
 import ahocorasick_tpu_torch as T
 import ahocorasick_tpu_torch.ops.block_scan as TBS
+import ahocorasick_tpu_torch.ops.walk_kernels as WK
 
 CASES = {
     # max pattern length 5 (halo 8), n not a power of two
@@ -56,8 +58,9 @@ def test_walk_equals_jax_jits(name):
     assert (n, block_len, halo) == (jn, jblock, jhalo)
     np.testing.assert_array_equal(buf.numpy(), jbuf)
     # The raw padded states of one walk.
-    states = TBS._scan_states(tda.trans_flat, tda.classes, buf,
-                              tda.alphabet_len, tda.start_id, block_len, halo)
+    states = WK.walk_states_plain(tda.trans_flat, tda.classes, buf,
+                                  tda.alphabet_len, tda.start_id, block_len,
+                                  halo)
     want = np.asarray(JB._scan_states_jit(
         jda.trans_flat, jda.classes, jnp.asarray(jbuf),
         jnp.int32(jda.alphabet_len), jnp.int32(jda.start_id), block_len,
@@ -70,7 +73,9 @@ def test_walk_equals_jax_jits(name):
         jda.trans_flat, jda.classes, jda.match_count, jnp.asarray(jbuf),
         jnp.int32(n), jnp.int32(jda.alphabet_len), jnp.int32(jda.start_id),
         block_len, halo))
-    assert TBS._count_matches(states, n, tda.match_count) == jtotal
+    assert int(WK.walk_count_plain(
+        tda.trans_flat, tda.classes, buf, tda.alphabet_len, tda.start_id,
+        block_len, halo, tda.match_count, 0, n)) == jtotal
     assert tda.count_matches(hay) == jda.count_matches(hay)
     k = 1 << max(int(len(hay) - 1).bit_length(), 6)
     jpos, jsid = JB._compact_matches_jit(

@@ -21,7 +21,7 @@ def test_import_loads_no_jax():
         "import ahocorasick_tpu_torch.serialize, ahocorasick_tpu_torch.stream\n"
         "from ahocorasick_tpu_torch.ops import staged, staged_kernels, "
         "fingerprint, fingerprint_kernels, compaction, cascade, block_scan, "
-        "candidate_kernels\n"
+        "candidate_kernels, walk_kernels\n"
         "T.AhoCorasick(['abcdef', 'bcdefg'], device='cpu', engine='cascade', "
         "device_threshold=0).count_matches(b'xabcdefg' * 600)\n"
         "T.AhoCorasick(['ab', ''], device='cpu', engine='dfa-scan', "
