@@ -548,6 +548,7 @@ class AhoCorasick:
     # ------------------------------------------------------------------
     # Searching
     # ------------------------------------------------------------------
+    @log.spanned("call")
     def try_find(self, input) -> Optional[Match]:
         input = to_input(input)
         self._check_anchored(input)
@@ -557,12 +558,13 @@ class AhoCorasick:
             )
         ms = self._match_set(input)
         earliest = self._match_kind.is_standard() or input.earliest
-        if earliest:
-            return semantics.earliest_match(ms, input.start)
-        for m in semantics.select_non_overlapping(
-            ms, self._match_kind, 0
-        ):
-            return m
+        with log.span("select"):
+            if earliest:
+                return semantics.earliest_match(ms, input.start)
+            for m in semantics.select_non_overlapping(
+                ms, self._match_kind, 0
+            ):
+                return m
         return None
 
     def find(self, input) -> Optional[Match]:
@@ -572,6 +574,7 @@ class AhoCorasick:
         input = to_input(input).set_earliest(True)
         return self.try_find(input) is not None
 
+    @log.call_iter
     def try_find_iter(self, input) -> Iterator[Match]:
         input = to_input(input)
         self._check_anchored(input)
@@ -581,7 +584,10 @@ class AhoCorasick:
             )
             return
         ms = self._match_set(input)
-        yield from semantics.select_non_overlapping(ms, self._match_kind, 0)
+        with log.span("select"):
+            yield from semantics.select_non_overlapping(
+                ms, self._match_kind, 0
+            )
 
     def find_iter(self, input) -> Iterator[Match]:
         return self.try_find_iter(input)
@@ -613,6 +619,7 @@ class AhoCorasick:
         state.at = replay.at
         state.next_match_index = replay.next_match_index
 
+    @log.spanned("call")
     def try_find_overlapping(
         self, input, state: oracle.OverlappingState
     ) -> None:
@@ -642,9 +649,10 @@ class AhoCorasick:
             return
         if state._dev is None:
             ms = self._match_set(input)
-            state._dev = [
-                list(semantics.overlapping_iter(ms)), 0, input, False,
-            ]
+            with log.span("select"):
+                state._dev = [
+                    list(semantics.overlapping_iter(ms)), 0, input, False,
+                ]
         matches, idx, _, _ = state._dev
         if idx < len(matches):
             state.mat = matches[idx]
@@ -658,6 +666,7 @@ class AhoCorasick:
     ) -> None:
         self.try_find_overlapping(input, state)
 
+    @log.call_iter
     def try_find_overlapping_iter(self, input) -> Iterator[Match]:
         input = to_input(input)
         self._check_anchored(input)
@@ -667,11 +676,13 @@ class AhoCorasick:
             yield from oracle.find_overlapping_iter(self._match_nfa, input)
             return
         ms = self._match_set(input)
-        yield from semantics.overlapping_iter(ms)
+        with log.span("select"):
+            yield from semantics.overlapping_iter(ms)
 
     def find_overlapping_iter(self, input) -> Iterator[Match]:
         return self.try_find_overlapping_iter(input)
 
+    @log.spanned("call")
     def count_matches(self, input) -> int:
         """Total number of overlapping matches, reduced on device.
 
@@ -710,6 +721,7 @@ class AhoCorasick:
     # ------------------------------------------------------------------
     # Replacing (ahocorasick.rs:651-906)
     # ------------------------------------------------------------------
+    @log.spanned("call")
     def try_replace_all(self, haystack: str, replace_with: Sequence[str]) -> str:
         if len(replace_with) != self.patterns_len():
             raise ValueError(
@@ -725,6 +737,7 @@ class AhoCorasick:
     def replace_all(self, haystack: str, replace_with: Sequence[str]) -> str:
         return self.try_replace_all(haystack, replace_with)
 
+    @log.spanned("call")
     def try_replace_all_bytes(
         self, haystack: bytes, replace_with: Sequence[bytes]
     ) -> bytes:
@@ -747,6 +760,7 @@ class AhoCorasick:
     ) -> bytes:
         return self.try_replace_all_bytes(haystack, replace_with)
 
+    @log.spanned("call")
     def try_replace_all_with(
         self,
         haystack: str,
@@ -770,6 +784,7 @@ class AhoCorasick:
     def replace_all_with(self, haystack, replacer):
         return self.try_replace_all_with(haystack, replacer)
 
+    @log.spanned("call")
     def try_replace_all_with_bytes(
         self,
         haystack: bytes,

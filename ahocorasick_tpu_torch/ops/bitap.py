@@ -28,6 +28,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import log
 from . import bitap_kernels as _kernels
 from .compaction import select_nonzero_words
 
@@ -243,6 +244,14 @@ def tables_on(cache: dict, device, arrays) -> tuple:
 # ---------------------------------------------------------------------------
 # Device layout
 # ---------------------------------------------------------------------------
+def upload(buf: np.ndarray, device) -> torch.Tensor:
+    """A packed host buffer on ``device``: a call's host-to-device copy."""
+    with log.span("prepare.upload"):
+        log.count("h2d_bytes", buf.nbytes)
+        return torch.from_numpy(buf).to(device)
+
+
+@log.spanned("prepare.layout")
 def _to_stream_major(x32: torch.Tensor, L: int, tiles: int, H: int):
     """Transpose packed words to the kernels' stream-major layout.
 
@@ -332,6 +341,7 @@ class BitapEngine:
         return self.tables.device_tensors(self.device)
 
     # ------------------------------------------------------------------
+    @log.spanned("prepare")
     def prepare(self, hs: bytes,
                 baked: Optional[bool] = None) -> PackedHaystack:
         """Upload a haystack into the device-resident kernel layout.
@@ -351,8 +361,9 @@ class BitapEngine:
         else:
             baked = bool(baked) and self.tables.pad_byte is not None
         pad = self.tables.pad_byte if baked else 0
-        x32 = torch.from_numpy(self._pack(hs, L, tiles, pad=pad))
-        halo_a, body = _to_stream_major(x32.to(self.device), L, tiles,
+        with log.span("prepare.pack"):
+            buf = self._pack(hs, L, tiles, pad=pad)
+        halo_a, body = _to_stream_major(upload(buf, self.device), L, tiles,
                                         self.halo)
         return PackedHaystack(n, L, tiles, baked, halo_a, body, hs)
 
@@ -367,13 +378,17 @@ class BitapEngine:
             lo, hi, sm, em, ph.halo_a, ph.body, 0, ph.n, extract,
         )
 
+    @log.spanned("pass")
     def count_matches(self, hs) -> int:
         ph = hs if isinstance(hs, PackedHaystack) else self.prepare(hs)
         if ph.n == 0:
             return 0
+        log.count("passes")
         counts, _ = self._scan(ph, extract=False)
-        return int(counts.sum())
+        with log.read():
+            return int(counts.sum())
 
+    @log.spanned("pass")
     def match_pairs(self, hs) -> Tuple[np.ndarray, np.ndarray]:
         """All overlapping matches as (pids, ends) host arrays, in the
         reference's overlapping report order (end asc, length desc,
@@ -405,8 +420,10 @@ class BitapEngine:
             ph = self.prepare(hs)
         L, tiles, baked = ph.L, ph.tiles, ph.baked
         kdim = len(t.end_limbs) if baked else t.k
+        log.count("passes")
         counts, words = self._scan(ph, extract=True)
-        total = int(counts.sum())
+        with log.read():
+            total = int(counts.sum())
         if total == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
         flat = words.reshape(-1)
@@ -417,12 +434,15 @@ class BitapEngine:
             if nnzw <= cap:
                 break
             cap = max(64, _pow2(nnzw))
+        with log.read(2):
+            idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
         return decode_match_words(
-            t, idx.cpu().numpy(), vals.cpu().numpy().view(np.uint32), L,
-            kdim, words_size, end_limbs=t.end_limbs if baked else None,
+            t, idx, vals.view(np.uint32), L, kdim, words_size,
+            end_limbs=t.end_limbs if baked else None,
         )
 
 
+@log.spanned("pass.order")
 def decode_match_words(t: BitapTables, idx: np.ndarray, vals: np.ndarray,
                        L: int, kdim: int, words_size: int,
                        end_limbs=None,

@@ -42,7 +42,9 @@ import numpy as np
 import torch
 
 from ..automata.dfa import DenseDFA
+from ..utils import log
 from . import walk_kernels as WK
+from .bitap import upload
 
 
 def _round_up(x: int, m: int) -> int:
@@ -125,19 +127,23 @@ class DeviceAutomaton:
         self.match_count = torch.from_numpy(mc).to(self.device)
 
     # ------------------------------------------------------------------
+    @log.spanned("prepare")
     def _prepare(self, haystack: bytes):
         """Pad the haystack into a bucketed device buffer; returns
         (buf, n, block_len, halo)."""
-        buf, n, block_len, halo = pack_haystack(haystack, self.halo)
-        return torch.from_numpy(buf).to(self.device), n, block_len, halo
+        with log.span("prepare.pack"):
+            buf, n, block_len, halo = pack_haystack(haystack, self.halo)
+        return upload(buf, self.device), n, block_len, halo
 
     def _states(self, haystack: bytes) -> Tuple[torch.Tensor, int]:
         buf, n, block_len, halo = self._prepare(haystack)
+        log.count("passes")
         states = WK.walk_states(self.trans_flat, self.classes, buf,
                                 self.alphabet_len, self.start_id, block_len,
                                 halo)
         return states, n
 
+    @log.spanned("pass")
     def match_positions(self, haystack: bytes):
         """Compacted match positions: (ends, state_ids) as host arrays.
 
@@ -150,8 +156,10 @@ class DeviceAutomaton:
             return (np.zeros(0, np.int64), np.zeros(0, np.int64))
         states, n = self._states(haystack)
         pos, sids = _compact_matches(states, n, self.max_match_id)
-        return pos.cpu().numpy() + 1, sids.cpu().numpy()
+        with log.read(2):
+            return pos.cpu().numpy() + 1, sids.cpu().numpy()
 
+    @log.spanned("pass")
     def scan_states(self, haystack: bytes) -> np.ndarray:
         """Per-position automaton states for an unanchored scan.
 
@@ -162,8 +170,10 @@ class DeviceAutomaton:
         if len(haystack) == 0:
             return np.zeros(0, dtype=np.int32)
         states, n = self._states(haystack)
-        return states[:n].cpu().numpy()
+        with log.read():
+            return states[:n].cpu().numpy()
 
+    @log.spanned("pass")
     def count_matches(self, haystack: bytes) -> int:
         """Total number of matches (overlapping semantics), summed inside
         the walk (W2 on the card): no state array is stored."""
@@ -175,15 +185,18 @@ class DeviceAutomaton:
         if len(haystack) == 0:
             return extra
         buf, n, block_len, halo = self._prepare(haystack)
+        log.count("passes")
         total = WK.walk_count(self.trans_flat, self.classes, buf,
                               self.alphabet_len, self.start_id, block_len,
                               halo, self.match_count, 0, n)
-        return int(total) + extra
+        with log.read():
+            return int(total) + extra
 
 
 def _compact_matches(states: torch.Tensor, n: int, max_match_id: int):
     """(positions, states) of the match states among the first n
     positions, in position order (int64)."""
     mask = (states[:n] >= 2) & (states[:n] <= max_match_id)
-    pos = torch.nonzero(mask).flatten()
+    with log.read():  # the count of match positions sizes the output
+        pos = torch.nonzero(mask).flatten()
     return pos, states[pos].to(torch.int64)

@@ -61,7 +61,8 @@ import torch
 from ..utils import log
 from . import candidate_kernels as _ck
 from . import fingerprint_kernels as _kernels
-from .bitap import LANES, BitapEngine, _layout_search, _pow2, _to_stream_major
+from .bitap import (LANES, BitapEngine, _layout_search, _pow2,
+                    _to_stream_major, upload)
 from .candidate_kernels import FP_LEN, KEY_LEN, LONG
 from .compaction import select_matches
 from .fingerprint import (
@@ -480,6 +481,7 @@ class CascadeEngine:
     def memory_usage(self) -> int:
         return self.tables.memory_usage()
 
+    @log.spanned("prepare")
     def prepare(self, hs: bytes) -> CascadeHaystack:
         """Upload a haystack into the device-resident cascade layout.
 
@@ -490,11 +492,12 @@ class CascadeEngine:
         L, tiles = self._layout(max(n, 1))
         total = tiles * LANES * L
         pad = self.pad_byte or 0
-        buf = np.full(total, pad, np.uint8) if pad else np.zeros(
-            total, np.uint8
-        )
-        buf[:n] = np.frombuffer(hs, np.uint8)
-        x32 = torch.from_numpy(buf.view(np.int32)).to(self.device)
+        with log.span("prepare.pack"):
+            buf = np.full(total, pad, np.uint8) if pad else np.zeros(
+                total, np.uint8
+            )
+            buf[:n] = np.frombuffer(hs, np.uint8)
+        x32 = upload(buf.view(np.int32), self.device)
         halo_a, body = _to_stream_major(x32, L, tiles, self.halo)
         u8f = _verify_buffer(x32, self.tables.W, self.ci)
         baked = self.pad_byte is not None
@@ -531,11 +534,14 @@ class CascadeEngine:
             dv = t.device_tensors(self.device)
             # One pass: the bitmap, S1, S3, the cumsum and S4, then one
             # read of the scalars.
+            log.count("passes")
             _, bmp = self._bitmap(ph, dv["coarse"])
             ncand, e_pos, live = _ck.cand_select(bmp, L, cap_c)
             total, total_e, flags = verify_candidates(
                 ph.u8f, e_pos, live, n, t, dv, cap_e, extract)
-            ncand, total, ne = torch.stack([ncand, total, total_e]).tolist()
+            with log.read():
+                ncand, total, ne = torch.stack(
+                    [ncand, total, total_e]).tolist()
             if ((ncand > cand_lim or ne > exp_lim)
                     and self._escalate()):
                 continue
@@ -563,14 +569,16 @@ class CascadeEngine:
             return total
         return self._host_pairs(*select_matches(*flags, cap_m))
 
+    @log.spanned("pass.order")
     def _host_pairs(self, out_pid: torch.Tensor, out_end: torch.Tensor):
         """The device's selected (pid, end) slots as full pattern-set
         (pids, ends) host arrays: -1 slots dropped, duplicate exact-class
         patterns expanded (the device emitted the representative pid once
         per match site), main-set pids mapped back. Not yet in report
         order."""
-        pid = out_pid.cpu().numpy()
-        end = out_end.cpu().numpy()
+        with log.read(2):
+            pid = out_pid.cpu().numpy()
+            end = out_end.cpu().numpy()
         real = pid >= 0
         pid, end = pid[real], end[real]
         ndup, start, members = self._dup_csr()
@@ -603,6 +611,7 @@ class CascadeEngine:
         return self._dups
 
     # ------------------------------------------------------------------
+    @log.spanned("pass")
     def count_matches(self, hs) -> Optional[int]:
         ph = hs if isinstance(hs, CascadeHaystack) else None
         if ph is None:
@@ -618,6 +627,7 @@ class CascadeEngine:
             got += self.side.count_matches(ph.side)
         return got
 
+    @log.spanned("pass")
     def match_pairs(
         self, hs
     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
@@ -640,5 +650,6 @@ class CascadeEngine:
             spids, sends = self.side.match_pairs(ph.side)
             pids = np.concatenate([pids, self.long_pids[spids]])
             ends = np.concatenate([ends, sends])
-        order = np.lexsort((self.pid_rank[pids], ends))
-        return pids[order], ends[order]
+        with log.span("pass.order"):
+            order = np.lexsort((self.pid_rank[pids], ends))
+            return pids[order], ends[order]

@@ -19,6 +19,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import log
 from .bitap_kernels import popcount32, u32
 
 
@@ -33,7 +34,8 @@ def select_nonzero_words(
     and ``live`` is False."""
     if flat.dim() != 1:
         raise ValueError(f"flat must be 1-D, got shape {tuple(flat.shape)}")
-    nz = torch.nonzero(flat).flatten()
+    with log.read():  # the count of nonzero words sizes the output
+        nz = torch.nonzero(flat).flatten()
     count = int(nz.numel())
     k = min(cap, count)
     idx = torch.full((cap,), flat.numel(), dtype=torch.int64,

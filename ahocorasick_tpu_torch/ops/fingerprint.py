@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import log
 from . import candidate_kernels as _ck
 from . import fingerprint_kernels as _kernels
 from .bitap import (
@@ -51,6 +52,7 @@ from .bitap import (
     _to_stream_major,
     pack_chains,
     tables_on,
+    upload,
 )
 from .candidate_kernels import FP_LEN
 from .compaction import select_matches
@@ -330,7 +332,9 @@ def _rank_select(bmp: torch.Tensor, L: int, cap: int):
     (``candidate_kernels.cand_select``) with its count read, the sharded
     searches' candidate selection."""
     ncand, e_pos, live = _ck.cand_select(bmp, L, cap)
-    return int(ncand), e_pos, live
+    with log.read():
+        ncand = int(ncand)
+    return ncand, e_pos, live
 
 
 # ---------------------------------------------------------------------------
@@ -614,6 +618,7 @@ class VerifyIndex:
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
+@log.spanned("prepare.layout")
 def _verify_buffer(x32: torch.Tensor, W: int, fold: bool) -> torch.Tensor:
     """The verify byte buffer: FP_LEN zero bytes, the packed haystack's
     bytes (padding included; ASCII-folded when ``fold``), W zero guard
@@ -751,6 +756,7 @@ class FingerprintEngine:
         return self.tables.device_tensors(self.device)
 
     # ------------------------------------------------------------------
+    @log.spanned("prepare")
     def prepare(self, hs: bytes) -> FpHaystack:
         """Upload a haystack into the device-resident engine layout."""
         n = len(hs)
@@ -759,9 +765,9 @@ class FingerprintEngine:
         # upload serves escalations. The pad-byte kernel (G6) serves
         # inputs of at least FP_BAKED_MIN, as in the JAX package.
         baked = self.pad_byte is not None and n >= FP_BAKED_MIN
-        x32 = torch.from_numpy(
-            self._pack(hs, L, tiles, self.pad_byte or 0)
-        ).to(self.device)
+        with log.span("prepare.pack"):
+            buf = self._pack(hs, L, tiles, self.pad_byte or 0)
+        x32 = upload(buf, self.device)
         halo_a, body = _to_stream_major(x32, L, tiles, self.halo)
         u8f = None
         if self.dv is not None and n >= FP_DV_MIN:
@@ -799,11 +805,13 @@ class FingerprintEngine:
             # One pass: the bitmap, S1 and S2 (which verifies the first
             # cap_c candidates before their count is known, as the JAX
             # dispatch does), then one read of both scalars.
+            log.count("passes")
             _, bmp = self.bitmap(ph)
             ncand, e_pos, live = _ck.cand_select(bmp, L, cap_c)
             ok, pid, end, total = _ck.fp_verify(ph.u8f, e_pos, live, n,
                                                 dv_tabs, self.dv.W, extract)
-            ncand, total = torch.stack([ncand, total]).tolist()
+            with log.read():
+                ncand, total = torch.stack([ncand, total]).tolist()
             if ncand > esc and self._escalate():
                 continue
             if ncand > limit:
@@ -825,13 +833,16 @@ class FingerprintEngine:
         if not extract:
             return total
         out_pid, out_end = select_matches(ok, pid, end, cap_m)
-        pid = out_pid.cpu().numpy()
-        end = out_end.cpu().numpy()
-        real = pid >= 0
-        pid, end = pid[real], end[real]
-        order = np.lexsort((self.verif.pid_rank[pid], end))
-        return pid[order], end[order]
+        with log.read(2):
+            pid = out_pid.cpu().numpy()
+            end = out_end.cpu().numpy()
+        with log.span("pass.order"):
+            real = pid >= 0
+            pid, end = pid[real], end[real]
+            order = np.lexsort((self.verif.pid_rank[pid], end))
+            return pid[order], end[order]
 
+    @log.spanned("pass")
     def candidates(self, hs) -> Optional[np.ndarray]:
         """0-based fingerprint-end candidate positions, or None when the
         workload is filter-hostile (caller should fall back)."""
@@ -847,6 +858,7 @@ class FingerprintEngine:
         esc = self._escalate_limit(n)
         cap = min(4096, max(512, _pow2(n >> 8)))
         while True:
+            log.count("passes")
             _, bmp = self.bitmap(ph)
             ncand, e_pos, live = _rank_select(bmp, ph.L, cap)
             if ncand > esc and self._escalate():
@@ -857,8 +869,10 @@ class FingerprintEngine:
             if ncand <= cap:
                 break
             cap = max(64, _pow2(ncand))
-        return e_pos[live].cpu().numpy()
+        with log.read():
+            return e_pos[live].cpu().numpy()
 
+    @log.spanned("pass")
     def match_pairs(
         self, hs
     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
@@ -878,11 +892,13 @@ class FingerprintEngine:
         cand = self.candidates(ph)
         if cand is None:
             return None
-        a = np.frombuffer(ph.hs, np.uint8)
-        if self.ci:
-            a = _fold_arr(a)
-        return self.verif.verify(a, cand)
+        with log.span("pass.order"):
+            a = np.frombuffer(ph.hs, np.uint8)
+            if self.ci:
+                a = _fold_arr(a)
+            return self.verif.verify(a, cand)
 
+    @log.spanned("pass")
     def count_matches(self, hs) -> Optional[int]:
         ph = hs if isinstance(hs, FpHaystack) else None
         if ph is None:

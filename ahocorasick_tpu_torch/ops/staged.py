@@ -39,6 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import log
 from . import staged_kernels as _kernels
 from .bitap import (
     LANES,
@@ -47,6 +48,7 @@ from .bitap import (
     _pow2,
     _round_tiles,
     decode_match_words,
+    upload,
 )
 from .compaction import select_nonzero_words
 
@@ -119,6 +121,7 @@ class StagedEngine:
         return (self.fp.device_tensors(self.device),
                 self.full.device_tensors(self.device))
 
+    @log.spanned("prepare")
     def prepare(self, hs: bytes) -> StagedHaystack:
         """Upload a haystack, padded with the pad byte to whole streams."""
         n = len(hs)
@@ -126,9 +129,10 @@ class StagedEngine:
         ns = tiles * LANES
         pad = self.full.pad_byte
         assert pad is not None
-        buf = np.full(ns * L, pad, np.uint8)
-        buf[:n] = np.frombuffer(hs, np.uint8)
-        rows = torch.from_numpy(buf.view(np.int32)).to(self.device)
+        with log.span("prepare.pack"):
+            buf = np.full(ns * L, pad, np.uint8)
+            buf[:n] = np.frombuffer(hs, np.uint8)
+        rows = upload(buf.view(np.int32), self.device)
         return StagedHaystack(n, L, Lc, tiles, rows.view(ns, L // 4))
 
     # ------------------------------------------------------------------
@@ -137,6 +141,7 @@ class StagedEngine:
     def flags(self, ph: StagedHaystack) -> torch.Tensor:
         """Stage 1: per-stream flag words [tiles, 8, 128] (G3)."""
         (lo, hi, sm, em), _ = self._args()
+        log.count("passes")
         return _kernels.staged_flags(lo, hi, sm, em, ph.rows, self.halo)
 
     def candidates(self, ph: StagedHaystack,
@@ -157,6 +162,7 @@ class StagedEngine:
         )
 
     # ------------------------------------------------------------------
+    @log.spanned("pass")
     def match_pairs(self, hs):
         """All overlapping matches as (pids, ends), or None on candidate
         overflow (caller falls back).
@@ -193,14 +199,19 @@ class StagedEngine:
             return None
         self._cap_s = max(self._cap_s, cap)
         self._cap_w = max(self._cap_w, cap_w)
-        if int(counts.sum()) == 0:
+        with log.read():
+            total = int(counts.sum())
+        if total == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
         words_size = (cap // LANES) * L * Ke * LANES
+        with log.read(3):
+            wix, vals, cand = (x.cpu().numpy() for x in (wix, vals, cand))
         return decode_match_words(
-            t, wix.cpu().numpy(), vals.cpu().numpy().view(np.uint32), L, Ke,
-            words_size, end_limbs=t.end_limbs, stream_map=cand.cpu().numpy(),
+            t, wix, vals.view(np.uint32), L, Ke, words_size,
+            end_limbs=t.end_limbs, stream_map=cand,
         )
 
+    @log.spanned("pass")
     def count_matches(self, hs) -> Optional[int]:
         """Exact overlapping-match count, or None when the candidate set
         overflowed the gather capacity (caller falls back)."""
@@ -220,6 +231,7 @@ class StagedEngine:
             ncand, cand = self.candidates(ph, cap)
             if ncand <= cap:
                 counts, _ = self.rescan(ph, cand, extract=False)
-                return int(counts.sum())
+                with log.read():
+                    return int(counts.sum())
             cap = max(cap * 2, _pow2(ncand))
         return None

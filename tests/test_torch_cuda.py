@@ -1079,3 +1079,37 @@ def test_sharded_walk_count_launches_w2_per_shard(dev):
     assert got == SH.sharded_count_matches(cpu._device_automaton(), hay,
                                            SH.Mesh(["cpu"] * 4))
     assert got == cpu.count_matches(hay) > 40
+
+
+@pytest.mark.parametrize("op", ["find_iter", "count_matches"])
+def test_tracing_on_the_card(dev, op):
+    """The program's spans on the card: the same answers with tracing on,
+    one record a call with its upload's bytes and its reads, and the
+    spans' `ac.` ranges in a profile that records the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ahocorasick_tpu_torch.utils import log
+
+    ac = AhoCorasick([b"Sherlock", b"Street"], device=dev)
+    hay = _hay(1 << 20, 9, [b"Sherlock", b"Street"])
+
+    def run():
+        if op == "count_matches":
+            return ac.count_matches(hay)
+        return [m.astuple() for m in ac.find_iter(hay)]
+    off = run()
+    log.take()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        log.enable(ranges=True)
+        try:
+            on = run()
+            torch.cuda.synchronize()
+        finally:
+            log.disable()
+    (rec,) = log.take()
+    assert on == off and off
+    assert rec["#call"] == 1 and rec["h2d_bytes"] >= len(hay)
+    assert rec["d2h_reads"] >= 1 and rec["passes"] >= 1
+    names = {e.name for e in prof.events()}
+    assert {"ac.call", "ac.prepare.upload", "ac.pass.read"} <= names
