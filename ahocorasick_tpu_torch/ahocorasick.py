@@ -561,11 +561,7 @@ class AhoCorasick:
         with log.span("select"):
             if earliest:
                 return semantics.earliest_match(ms, input.start)
-            for m in semantics.select_non_overlapping(
-                ms, self._match_kind, 0
-            ):
-                return m
-        return None
+            return semantics.first_non_overlapping(ms, self._match_kind, 0)
 
     def find(self, input) -> Optional[Match]:
         return self.try_find(input)

@@ -30,12 +30,29 @@ back to the oracle, whose walk defines the reference behavior).
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+import collections
+import itertools
+from typing import Iterator, List, Optional
 
 import numpy as np
 
 from .automata.dfa import DenseDFA
+from .utils import log
 from .utils.search import Match, MatchKind
+
+# Matches are built BLOCK at a time. A block's fixed cost (three slices,
+# three `.tolist()`, four `map` passes: ~5 us) is ~2% of its objects'
+# (~0.5 us each); blocks of 256-384 ran 5-15% slower with the garbage
+# collector on, 640 and more no faster. A consumer that stops early pays
+# for at most one block (a traced iterator takes log.STEP = 256 a step).
+BLOCK = 512
+
+# Match is frozen: its __setattr__ raises, its slot setters do not.
+_new = object.__new__
+_set_pattern = Match.pattern.__set__
+_set_start = Match.start.__set__
+_set_end = Match.end.__set__
+_exhaust = collections.deque(maxlen=0).extend  # runs a map, keeps nothing
 
 
 class MatchSet:
@@ -65,11 +82,36 @@ class MatchSet:
         return len(self.pids)
 
     def match_at(self, i: int) -> Match:
-        return Match(
-            int(self.pids[i]),
-            int(self.starts[i]) + self.offset,
-            int(self.ends[i]) + self.offset,
-        )
+        return _build(
+            self.pids[i:i + 1],
+            self.starts[i:i + 1] + self.offset,
+            self.ends[i:i + 1] + self.offset,
+        )[0]
+
+
+def _build(
+    pids: np.ndarray, starts: np.ndarray, ends: np.ndarray
+) -> List[Match]:
+    """``Match(pids[i], starts[i], ends[i])`` for every row, without
+    running the frozen dataclass's ``__init__``: each field goes in
+    through its slot setter, one C-level pass per field."""
+    out = list(map(_new, itertools.repeat(Match, len(pids))))
+    _exhaust(map(_set_pattern, out, pids.tolist()))
+    _exhaust(map(_set_start, out, starts.tolist()))
+    _exhaust(map(_set_end, out, ends.tolist()))
+    log.count("select.built", len(out))
+    return out
+
+
+def _iter_matches(
+    pids: np.ndarray, starts: np.ndarray, ends: np.ndarray, offset: int
+) -> Iterator[Match]:
+    """The rows' matches, ``offset`` added to their starts and ends, in
+    row order, built a block at a time."""
+    starts, ends = starts + offset, ends + offset
+    for lo in range(0, len(pids), BLOCK):
+        hi = lo + BLOCK
+        yield from _build(pids[lo:hi], starts[lo:hi], ends[lo:hi])
 
 
 def extract_match_set(
@@ -126,8 +168,7 @@ def extract_match_set_from_positions(
 
 def overlapping_iter(ms: MatchSet) -> Iterator[Match]:
     """The overlapping match stream (already in reference report order)."""
-    for i in range(len(ms)):
-        yield ms.match_at(i)
+    yield from _iter_matches(ms.pids, ms.starts, ms.ends, ms.offset)
 
 
 def _selection_order(ms: MatchSet, kind: MatchKind) -> np.ndarray:
@@ -143,48 +184,59 @@ def _selection_order(ms: MatchSet, kind: MatchKind) -> np.ndarray:
     return np.lexsort((ms.pids, -lens, ms.starts))
 
 
-def select_non_overlapping(
-    ms: MatchSet, kind: MatchKind, start_at: int = 0
-) -> Iterator[Match]:
-    """Greedy non-overlapping selection, replicating FindIter::next
-    (automaton.rs:923-935) including the empty-match suppression rule
-    (automaton.rs:885-920).
+def _select_chain(
+    starts: np.ndarray, ends: np.ndarray, start_at: int
+) -> np.ndarray:
+    """The greedy selection over candidates none of which is empty.
 
-    ``start_at`` is the initial search position relative to the scanned
-    slice (usually 0).
+    The pick after candidate k is the first later candidate that starts
+    at or after ``ends[k]``. Every candidate before k starts before the
+    position the search had reached, which is below ``ends[k]``, so that
+    is the first candidate of all with such a start: a search over the
+    running maximum of the starts (the starts themselves under the
+    leftmost kinds, where they are sorted). The chain of picks is then
+    followed by doubling: ``path`` holds picks 0 .. 2^t - 1 and ``jump``
+    each candidate's 2^t-th successor, with ``m`` as the end.
     """
-    order = _selection_order(ms, kind)
-    starts = ms.starts[order]
-    ends = ms.ends[order]
-    pids = ms.pids[order]
-    m_count = len(order)
+    keys = np.maximum.accumulate(starts)
+    m = len(keys)
+    jump = np.append(np.searchsorted(keys, ends), m)
+    path = np.searchsorted(keys, [start_at])
+    while path[-1] < m:
+        path = np.concatenate([path, jump[path]])
+        jump = jump[jump]
+    return path[path < m]
 
+
+def _select_loop(
+    starts: List[int], ends: List[int], start_at: int
+) -> List[int]:
+    """The greedy selection candidate by candidate, with the empty-match
+    rule (automaton.rs:885-920)."""
+    m_count = len(starts)
+    sel = []
     i = 0
     j = start_at
     last_end: Optional[int] = None
-
-    def select(j: int, i: int) -> Tuple[Optional[int], int]:
+    while True:
         # First candidate (in selection order) with start >= j. Entries
         # skipped here have start < j and stay disqualified forever since
         # j is non-decreasing, so the pointer never moves backwards.
         while i < m_count and starts[i] < j:
             i += 1
-        return (i if i < m_count else None, i)
-
-    while True:
-        k, i = select(j, i)
-        if k is None:
-            return
-        s, e, p = int(starts[k]), int(ends[k]), int(pids[k])
-        if s == e and last_end == e:
+        if i == m_count:
+            return sel
+        e = ends[i]
+        if starts[i] == e and last_end == e:
             # Empty match abutting the previous match: bump start by one
             # and re-select (automaton.rs:908-920).
-            j = j + 1
-            k, i = select(j, i)
-            if k is None:
-                return
-            s, e, p = int(starts[k]), int(ends[k]), int(pids[k])
-        yield Match(p, s + ms.offset, e + ms.offset)
+            j += 1
+            while i < m_count and starts[i] < j:
+                i += 1
+            if i == m_count:
+                return sel
+            e = ends[i]
+        sel.append(i)
         # Do NOT advance the pointer past the emitted entry: an emitted
         # empty match stays selectable (j == end), exactly as a re-search
         # from the same position re-finds it in the reference; the empty
@@ -194,6 +246,43 @@ def select_non_overlapping(
         last_end = e
 
 
+def select_non_overlapping(
+    ms: MatchSet, kind: MatchKind, start_at: int = 0
+) -> Iterator[Match]:
+    """Greedy non-overlapping selection, replicating FindIter::next
+    (automaton.rs:923-935) including the empty-match suppression rule
+    (automaton.rs:885-920).
+
+    ``start_at`` is the initial search position relative to the scanned
+    slice (usually 0). A set without empty matches takes the array path;
+    one with an empty match (standard semantics with the empty pattern)
+    walks its candidates one by one.
+    """
+    order = _selection_order(ms, kind)
+    starts = ms.starts[order]
+    ends = ms.ends[order]
+    if (starts == ends).any():
+        log.count("select.loop", len(order))
+        sel = _select_loop(starts.tolist(), ends.tolist(), start_at)
+    else:
+        sel = _select_chain(starts, ends, start_at)
+    rows = order[sel]
+    yield from _iter_matches(
+        ms.pids[rows], ms.starts[rows], ms.ends[rows], ms.offset
+    )
+
+
+def first_non_overlapping(
+    ms: MatchSet, kind: MatchKind, start_at: int = 0
+) -> Optional[Match]:
+    """The first match of `select_non_overlapping`, built alone: the first
+    candidate in selection order that starts at or after ``start_at`` (the
+    empty-match rule needs an earlier match)."""
+    order = _selection_order(ms, kind)
+    hits = np.flatnonzero(ms.starts[order] >= start_at)
+    return ms.match_at(int(order[hits[0]])) if len(hits) else None
+
+
 def earliest_match(
     ms: MatchSet, start_at: int = 0
 ) -> Optional[Match]:
@@ -201,9 +290,6 @@ def earliest_match(
     the first match a scanning automaton would enter (minimum end, then
     longest, then lowest pattern ID), regardless of the configured kind
     (automaton.rs:1266 forces earliest for standard; for leftmost kinds an
-    earliest search also stops at the first match entered)."""
-    starts = ms.starts
-    for i in range(len(ms)):
-        if starts[i] >= start_at:
-            return ms.match_at(i)
-    return None
+    earliest search also stops at the first match entered). That is the
+    first standard-order candidate at or after ``start_at``."""
+    return first_non_overlapping(ms, MatchKind.STANDARD, start_at)

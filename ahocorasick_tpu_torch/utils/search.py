@@ -78,12 +78,13 @@ class Span:
         return not self.is_empty() and self.start <= offset < self.end
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, slots=True)
 class Match:
     """A match: pattern ID plus the span of the haystack that matched.
 
     Mirrors util/search.rs:824-964. ``start``/``end`` are byte offsets into
-    the haystack; ``end - start == len(patterns[pattern])``.
+    the haystack; ``end - start == len(patterns[pattern])``. Slotted, so
+    that `semantics` can build matches in bulk through the slot setters.
     """
 
     pattern: int
