@@ -342,6 +342,7 @@ class AhoCorasick:
                     self._fp.tables.pad_byte,
                 )
         if self._fp is not None and self._fp.hostile and not forced:
+            log.count("declined.fingerprint")
             return None
         return self._fp
 
@@ -366,6 +367,7 @@ class AhoCorasick:
                 )
         if (self._cascade is not None and self._cascade.hostile
                 and not forced):
+            log.count("declined.cascade")
             return None
         return self._cascade
 
@@ -485,7 +487,9 @@ class AhoCorasick:
                 if staged is not None:
                     got = staged.match_pairs(hs)
                     if got is not None:
+                        log.count("served.staged")
                         return match_set(*got)
+            log.count("served.bitap")
             return match_set(*bitap.match_pairs(hs))
         for eng in self._filter_engines(len(hs)):
             got = eng.match_pairs(hs)
@@ -499,6 +503,7 @@ class AhoCorasick:
 
             got = _native.dfa_positions(self._dfa, hs)
             if got is not None:
+                log.count("served.native_walk")
                 ends, sids = got
                 return semantics.extract_match_set_from_positions(
                     self._dfa, ends, sids, input.start
@@ -509,6 +514,7 @@ class AhoCorasick:
         ):
             from .ops.block_scan import scan_states_host
 
+            log.count("served.host_walk")
             states = scan_states_host(self._dfa, hs)
             return semantics.extract_match_set(
                 self._dfa, states, input.start
@@ -528,6 +534,7 @@ class AhoCorasick:
                 "engine='auto' (bitap/fingerprint/cascade/native "
                 "selection)", len(hs),
             )
+        log.count("served.device_walk")
         ends, sids = self._device_automaton().match_positions(hs)
         return semantics.extract_match_set_from_positions(
             self._dfa, ends, sids, input.start
@@ -559,8 +566,11 @@ class AhoCorasick:
         ms = self._match_set(input)
         earliest = self._match_kind.is_standard() or input.earliest
         with log.span("select"):
+            # The match set's starts are relative to the span: the span's
+            # first byte is 0 (the JAX package passes input.start here and
+            # skips the span's first input.start bytes).
             if earliest:
-                return semantics.earliest_match(ms, input.start)
+                return semantics.earliest_match(ms, 0)
             return semantics.first_non_overlapping(ms, self._match_kind, 0)
 
     def find(self, input) -> Optional[Match]:
@@ -696,7 +706,9 @@ class AhoCorasick:
             if staged is not None:
                 got = staged.count_matches(hs)
                 if got is not None:  # None: candidate overflow, rescan
+                    log.count("served.staged")
                     return got
+            log.count("served.bitap")
             return bitap.count_matches(hs)
         for eng in self._filter_engines(len(hs)):
             got = eng.count_matches(hs)
@@ -707,11 +719,13 @@ class AhoCorasick:
 
             got = _native.dfa_count(self._dfa, hs)
             if got is not None:
+                log.count("served.native_walk")
                 extra = 0
                 start_id = self._dfa.special.start_unanchored_id
                 if 2 <= start_id <= self._dfa.special.max_match_id:
                     extra = int(self._dfa.match_count[start_id])
                 return got + extra
+        log.count("served.device_walk")
         return self._device_automaton().count_matches(hs)
 
     # ------------------------------------------------------------------

@@ -17,6 +17,7 @@ from typing import List, Optional
 import numpy as np
 
 from .. import _build
+from ..utils import log
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -139,6 +140,7 @@ def available() -> bool:
     return _load() is not None
 
 
+@log.spanned("walk.native")
 def dfa_count(dfa, haystack: bytes,
               n_threads: Optional[int] = None) -> Optional[int]:
     """Native dense-DFA overlapping-match count (~1 GB/s/core).
@@ -165,6 +167,7 @@ def dfa_count(dfa, haystack: bytes,
     ))
 
 
+@log.spanned("walk.native")
 def dfa_positions(dfa, haystack: bytes,
                   n_threads: Optional[int] = None):
     """Native scan emitting compacted (1-based end, state) match

@@ -542,11 +542,13 @@ class CascadeEngine:
             with log.read():
                 ncand, total, ne = torch.stack(
                     [ncand, total, total_e]).tolist()
+            log.count("candidates", ncand)
             if ((ncand > cand_lim or ne > exp_lim)
                     and self._escalate()):
                 continue
             if ncand > cand_lim or ne > exp_lim:
                 self.hostile = True
+                log.count("declined.cascade")
                 return None
             settled = True
             if ncand > cap_c:
@@ -560,6 +562,7 @@ class CascadeEngine:
                 settled = False
             if settled:
                 break
+        log.count("served.cascade")
         self._caps["c"] = max(self._caps.get("c", 0), cap_c)
         self._caps["e"] = max(self._caps.get("e", 0), cap_e)
         if extract:

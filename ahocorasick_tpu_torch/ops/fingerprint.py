@@ -556,6 +556,7 @@ class VerifyIndex:
             self.tails[(c, ln)] = mat
             self.tail_row[pids] = np.arange(len(pids))
 
+    @log.spanned("pass.verify")
     def verify(
         self, a: np.ndarray, cand: np.ndarray
     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -812,10 +813,12 @@ class FingerprintEngine:
                                                 dv_tabs, self.dv.W, extract)
             with log.read():
                 ncand, total = torch.stack([ncand, total]).tolist()
+            log.count("candidates", ncand)
             if ncand > esc and self._escalate():
                 continue
             if ncand > limit:
                 self.hostile = True
+                log.count("declined.fingerprint")
                 return None
             settled = True
             if ncand > cap_c:
@@ -826,6 +829,7 @@ class FingerprintEngine:
                 settled = False
             if settled:
                 break
+        log.count("served.fingerprint_device")
         self._caps["c"] = max(self._caps.get("c", 0), cap_c)
         if extract:
             self._caps["m"] = max(self._caps.get("m", 0), cap_m)
@@ -861,10 +865,12 @@ class FingerprintEngine:
             log.count("passes")
             _, bmp = self.bitmap(ph)
             ncand, e_pos, live = _rank_select(bmp, ph.L, cap)
+            log.count("candidates", ncand)
             if ncand > esc and self._escalate():
                 continue
             if ncand > limit:
                 self.hostile = True
+                log.count("declined.fingerprint")
                 return None
             if ncand <= cap:
                 break
@@ -892,6 +898,7 @@ class FingerprintEngine:
         cand = self.candidates(ph)
         if cand is None:
             return None
+        log.count("served.fingerprint_host")
         with log.span("pass.order"):
             a = np.frombuffer(ph.hs, np.uint8)
             if self.ci:

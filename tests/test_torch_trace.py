@@ -79,6 +79,19 @@ ROUTES = {
     "dfa-scan.count": ("dfa-scan", "count_matches", {}),
     "dfa-scan.find_iter": ("dfa-scan", "find_iter", {}),
 }
+# The served.* counter each route records once per call.
+SERVED = {
+    "fingerprint.find_iter": "fingerprint_device",
+    "fingerprint.find_iter.host_verify": "fingerprint_host",
+    "fingerprint.count": "fingerprint_device",
+    "staged.count": "staged",
+    "bitap.count": "bitap",
+    "bitap.find_iter": "bitap",
+    "cascade.count": "cascade",
+    "cascade.find_iter": "cascade",
+    "dfa-scan.count": "device_walk",
+    "dfa-scan.find_iter": "device_walk",
+}
 
 
 def _run(ac, op, hay):
@@ -125,6 +138,11 @@ def test_route_records_its_steps_and_answers_as_when_off(route,
     assert rec["d2h_reads"] >= rec["#pass.read"] >= 1
     assert rec["passes"] >= 1
     assert ("select" in rec) == (op != "count_matches")
+    assert [k for k in rec if k.startswith("served.")] == [
+        "served." + SERVED[route]]
+    assert rec["served." + SERVED[route]] == 1
+    assert not [k for k in rec if k.startswith("declined.")]
+    assert ("#pass.verify" in rec) == (SERVED[route] == "fingerprint_host")
     assert all(rec[s] >= 0 for s in _spans(rec))
 
 
