@@ -19,6 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 import ahocorasick_tpu.ops.bitap as JB
 import ahocorasick_tpu_torch.ops.bitap as TB
 from ahocorasick_tpu_torch.ops import bitap_kernels as TK
+from torch_suite import per_test_time_limit  # noqa: F401
 
 NAMES = [b"Sherlock Holmes", b"John Watson", b"Irene Adler",
          b"Inspector Lestrade", b"Professor Moriarty"]
@@ -69,8 +70,9 @@ def _case(name):
 
 CASES = ["boundaries", "long_halo", "case_insensitive", "no_pad_byte",
          "single_tile", "multi_tile", "k_over_64"]
-# The K > 64 set compiles its interpret-mode kernel for about a minute,
-# so it gets one JAX call of its own (test_k_over_64_generic_equals_pallas).
+# The K > 64 set compiles its interpret-mode kernel for minutes, so it
+# gets one JAX call of its own (test_k_over_64_generic_equals_pallas, in
+# tests/test_torch_limb_groups.py).
 KERNEL_CASES = [c for c in CASES if c != "k_over_64"]
 PAD_CASES = [c for c in KERNEL_CASES if c != "no_pad_byte"]
 
@@ -230,35 +232,6 @@ def test_baked_plain_equals_pallas(name, extract):
     assert int(counts.sum()) == int(total) and int(nnzw) == len(nz)
     np.testing.assert_array_equal(np.asarray(idx)[:len(nz)], nz)
     np.testing.assert_array_equal(np.asarray(vals)[:len(nz)], flat[nz])
-
-
-def test_k_over_64_generic_equals_pallas():
-    """K = 65 limbs: the Hopper kernel keeps such state in a global
-    scratch instead of registers. One JAX extract call gives the total and
-    the raw words; the plain version and the port's engine match both."""
-    jeng, teng, hay = _engines("k_over_64")
-    t = jeng.tables
-    assert t.k == 65
-    L, Lc, tiles, halo, body = _packed(jeng, hay, 0)
-    n = len(hay)
-    total, jwords = JB._bitap_call(
-        *t.device_args(), jnp.asarray(halo), jnp.asarray(body),
-        jnp.asarray([0, n], jnp.int32), K=t.k, L=L, Lc=Lc, H=jeng.halo,
-        tiles=tiles, extract=True)
-    jwords = np.asarray(jwords)
-    lo, hi, sm, em = _port_tables(teng)
-    counts, words = TK.bitap_scan_generic_plain(
-        lo, hi, sm, em, _t(halo), _t(body), 0, n, True)
-    assert int(counts.sum()) == int(total) == 2
-    np.testing.assert_array_equal(words.numpy(), jwords)
-    flat = jwords.reshape(-1)
-    nz = np.flatnonzero(flat)
-    jp, je = JB.decode_match_words(t, nz, flat[nz].view(np.uint32), L, t.k,
-                                   flat.size)
-    assert teng.count_matches(hay) == 2
-    tp, te = teng.match_pairs(hay)
-    np.testing.assert_array_equal(tp, jp)
-    np.testing.assert_array_equal(te, je)
 
 
 def _t(a):

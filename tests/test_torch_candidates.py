@@ -28,6 +28,7 @@ import ahocorasick_tpu_torch.ops.fingerprint as TF
 from ahocorasick_tpu_torch.ops import candidate_kernels as CK
 from ahocorasick_tpu_torch.ops.compaction import select_matches
 from test_cascade import NAME_SYL, brute_pairs, make_dict, make_text
+from torch_suite import per_test_time_limit  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -25,6 +25,7 @@ from ahocorasick_tpu_torch.ops import candidate_kernels as CK
 from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
 from ahocorasick_tpu_torch.ops.compaction import select_matches
 from test_cascade import NAME_SYL, brute_pairs, make_dict, make_text
+from torch_suite import per_test_time_limit  # noqa: F401
 
 FF = [b"\xff" * 8, b"\xff" * 4, b"\xff" * 7, b"\xff" * 12]
 

@@ -17,22 +17,11 @@ import torch
 
 from ahocorasick_tpu import cli as jcli
 from ahocorasick_tpu_torch import cli
+from torch_suite import per_test_time_limit  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SYL = "bar bel bor dan dar del dor fan far gar gor hal han".split()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The kernels' plain versions run many small torch operations. With
-    several test processes on one host, torch's intra-op threads contend
-    (one case of this file took 50x longer beside five copies of itself),
-    so these tests run torch on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ from ahocorasick_tpu_torch.ops.compaction import (
     select_nonzero_words,
     select_set_bits,
 )
+from torch_suite import per_test_time_limit  # noqa: F401
 
 
 def _check(words: np.ndarray, cap: int):

@@ -25,6 +25,7 @@ from ahocorasick_tpu_torch.ops import staged_kernels as SK
 from test_torch_limb_sets import SETS as LIMB_GROUP_SETS
 from test_torch_limb_sets import STAGED_SETS as STAGED_GROUP_SETS
 from test_torch_limb_sets import limb_sets
+from torch_suite import per_test_time_limit  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

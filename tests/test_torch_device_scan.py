@@ -20,6 +20,7 @@ import ahocorasick_tpu.ops.block_scan as JB
 import ahocorasick_tpu_torch as T
 import ahocorasick_tpu_torch.ops.block_scan as TBS
 import ahocorasick_tpu_torch.ops.walk_kernels as WK
+from torch_suite import per_test_time_limit  # noqa: F401
 
 CASES = {
     # max pattern length 5 (halo 8), n not a power of two

@@ -21,6 +21,7 @@ import pytest
 import ahocorasick_tpu_torch as T
 from ahocorasick_tpu_torch.ops import cascade as TC
 from ahocorasick_tpu_torch.utils import log
+from torch_suite import per_test_time_limit  # noqa: F401
 
 LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
 SYLLABLES = [o + v for o in b"b c d f g l m n p r s t st tr pr con in".split()

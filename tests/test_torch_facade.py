@@ -39,6 +39,7 @@ from ahocorasick_tpu_torch.stream import (
     stream_replace_all,
     stream_replace_all_with,
 )
+from torch_suite import per_test_time_limit  # noqa: F401
 
 AhoCorasick = functools.partial(_AhoCorasick, device="cpu")
 

@@ -20,6 +20,7 @@ import ahocorasick_tpu_torch.ops.fingerprint as TF
 from ahocorasick_tpu_torch.ops import candidate_kernels as CK
 from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
 from ahocorasick_tpu_torch.ops.compaction import select_matches
+from torch_suite import per_test_time_limit  # noqa: F401
 
 NAMES = [b"Sherlock Holmes", b"John Watson", b"Irene Adler",
          b"Inspector Lestrade", b"Professor Moriarty"]

@@ -7,6 +7,8 @@ import re
 import subprocess
 import sys
 
+from torch_suite import per_test_time_limit  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|jaxlib|ahocorasick_tpu)(?:\.|\s|$)",

@@ -14,6 +14,7 @@ import pytest
 import ahocorasick_tpu as J
 import ahocorasick_tpu_torch as T
 from ahocorasick_tpu_torch.utils import log
+from torch_suite import per_test_time_limit  # noqa: F401
 
 PATS = [b"ab", b"b", b"xab", b"abc", b"bxa"]
 HAY = b"xxab xab abc bxab b"

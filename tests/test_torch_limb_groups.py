@@ -9,16 +9,21 @@ written by the lane that holds the limb and G2's end-bearing limbs are
 numbered across the group from a prefix of the lanes below. Here a plain
 scan built with those rules, segment by segment as `scan_plan` cuts the
 streams, must equal the whole-stream plain version `scan_plain`, which
-`tests/test_torch_bitap.py` holds against the JAX package's Pallas kernel
-at K = 65. No Pallas call runs here. Every output is an integer: the
-tolerance is exact equality.
+the last test here holds against the JAX package's Pallas kernel at
+K = 65, on the inputs of `tests/test_torch_bitap.py` (its one
+interpret-mode call compiles for minutes: in this file of quick cases it
+runs beside little else). Every output is an integer: the tolerance is
+exact equality.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import ahocorasick_tpu.ops.bitap as JB
 from ahocorasick_tpu_torch.ops import bitap as TB
+from ahocorasick_tpu_torch.ops import bitap_kernels as TK
 from ahocorasick_tpu_torch.ops.bitap_kernels import (
     GROUP_LIMBS,
     MAX_GROUP,
@@ -35,7 +40,9 @@ from ahocorasick_tpu_torch.ops.bitap_kernels import (
     to_i32,
     u32,
 )
+from test_torch_bitap import _engines, _packed, _port_tables, _t
 from test_torch_limb_sets import K_OF, SETS
+from torch_suite import per_test_time_limit  # noqa: F401
 
 _M32 = 0xFFFFFFFF
 # Resident thread slots of an H100 SXM (132 SMs x 2048 threads), which the
@@ -134,16 +141,6 @@ def group_scan(lo, hi, sm, em, halo, body, window, end_limbs, P, G, KR):
     words = words.reshape(L, kdim, tiles, 1024).permute(2, 0, 1, 3)
     return (counts.to(torch.int32).reshape(tiles, 8, 128),
             to_i32(words.reshape(tiles, L, kdim, 8, 128)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These scans are many small torch operations, which run many times
-    faster on one CPU thread than spread over a contended pool."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _case(name):
@@ -281,3 +278,32 @@ def test_group_tables_in_shared_memory_up_to_1728_limbs():
     assert lo.shape == (1121, 16)
     assert lo.untyped_storage().nbytes() == hi.untyped_storage().nbytes() == (
         18 * 64 * 16 * 4)
+
+
+def test_k_over_64_generic_equals_pallas():
+    """K = 65 limbs: the Hopper kernel keeps such state in a global
+    scratch instead of registers. One JAX extract call gives the total and
+    the raw words; the plain version and the port's engine match both."""
+    jeng, teng, hay = _engines("k_over_64")
+    t = jeng.tables
+    assert t.k == 65
+    L, Lc, tiles, halo, body = _packed(jeng, hay, 0)
+    n = len(hay)
+    total, jwords = JB._bitap_call(
+        *t.device_args(), jnp.asarray(halo), jnp.asarray(body),
+        jnp.asarray([0, n], jnp.int32), K=t.k, L=L, Lc=Lc, H=jeng.halo,
+        tiles=tiles, extract=True)
+    jwords = np.asarray(jwords)
+    lo, hi, sm, em = _port_tables(teng)
+    counts, words = TK.bitap_scan_generic_plain(
+        lo, hi, sm, em, _t(halo), _t(body), 0, n, True)
+    assert int(counts.sum()) == int(total) == 2
+    np.testing.assert_array_equal(words.numpy(), jwords)
+    flat = jwords.reshape(-1)
+    nz = np.flatnonzero(flat)
+    jp, je = JB.decode_match_words(t, nz, flat[nz].view(np.uint32), L, t.k,
+                                   flat.size)
+    assert teng.count_matches(hay) == 2
+    tp, te = teng.match_pairs(hay)
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_array_equal(te, je)

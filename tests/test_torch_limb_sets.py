@@ -2,12 +2,16 @@
 
 One definition for the CPU tests (`tests/test_torch_limb_groups.py`), the
 card tests (`tests/test_torch_cuda.py`) and `chip_smoke.py`, so that all
-three hold the kernels on the same sets. This module imports numpy alone
-at its top, so a script can load it beside any checkout of the port.
+three hold the kernels on the same sets. This module imports numpy,
+pytest and the tests' shared settings (`torch_suite.py`, torch and pytest)
+at its top, and nothing of the port, so a script can load it beside any
+checkout of the port.
 """
 
 import numpy as np
 import pytest
+
+from torch_suite import per_test_time_limit  # noqa: F401
 
 
 def random_words(count, lo, hi, seed):

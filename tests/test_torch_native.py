@@ -21,6 +21,7 @@ from ahocorasick_tpu_torch.automata.noncontiguous import (
     patterns_to_bytes,
 )
 from ahocorasick_tpu_torch.utils.search import MatchKind
+from torch_suite import per_test_time_limit  # noqa: F401
 
 NFA_ARRAYS = ["fail", "depth", "match_starts", "match_pids", "trans_starts",
               "trans_bytes", "trans_next", "classes", "pattern_lens"]

@@ -35,23 +35,12 @@ from ahocorasick_tpu_torch.packed import (
 )
 from ahocorasick_tpu_torch.packed import teddy as TT
 from ahocorasick_tpu_torch.utils.search import Span
+from torch_suite import per_test_time_limit  # noqa: F401
 
 KINDS = [MatchKind.LEFTMOST_FIRST, MatchKind.LEFTMOST_LONGEST]
 FORCES = [None, "rabinkarp", "teddy"]
 # Padding variations of packed/tests.rs:42-51 (tests/test_packed.py).
 PADS = [0, 1, 2, 7, 15, 16, 17, 40, 128, 260]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The kernels' plain versions run many small torch operations. With
-    several test processes on one host, torch's intra-op threads contend
-    (one case of this file took 50x longer beside five copies of itself),
-    so these tests run torch on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def cfg(kind=MatchKind.LEFTMOST_FIRST, force=None):

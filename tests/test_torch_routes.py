@@ -18,6 +18,7 @@ import ahocorasick_tpu_torch as T
 import ahocorasick_tpu_torch.ops.bitap as TB
 import ahocorasick_tpu_torch.ops.fingerprint as TF
 import ahocorasick_tpu_torch.ops.staged as TS
+from torch_suite import per_test_time_limit  # noqa: F401
 
 NAMES = ["Sherlock Holmes", "John Watson", "Irene Adler",
          "Inspector Lestrade", "Professor Moriarty"]

@@ -42,6 +42,7 @@ from ahocorasick_tpu_torch.ops.bitap_kernels import (
     to_i32,
     u32,
 )
+from torch_suite import per_test_time_limit  # noqa: F401
 
 NAMES = [b"Sherlock Holmes", b"John Watson", b"Irene Adler",
          b"Inspector Lestrade", b"Professor Moriarty"]

@@ -23,6 +23,7 @@ import ahocorasick_tpu_torch as T
 from ahocorasick_tpu_torch import oracle, semantics, stream
 from ahocorasick_tpu_torch.utils import log
 from ahocorasick_tpu_torch.utils.search import Input, Match, MatchKind
+from torch_suite import per_test_time_limit  # noqa: F401
 
 KINDS = list(MatchKind)
 SEEDS = [1, 2, 3]

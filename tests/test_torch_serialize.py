@@ -14,6 +14,7 @@ import pytest
 import ahocorasick_tpu as J
 import ahocorasick_tpu_torch as T
 from ahocorasick_tpu_torch import serialize as TS
+from torch_suite import per_test_time_limit  # noqa: F401
 
 PATS = ["append", "appendage", "app", "ap", "Snap"]
 HAY = "the appendage Snapped app ap append " * 7

@@ -39,22 +39,11 @@ from ahocorasick_tpu_torch.parallel.shard import (
     sharded_staged_count,
     sharded_stream_replace_all,
 )
+from torch_suite import per_test_time_limit  # noqa: F401
 
 NDEVS = [1, 2, 8]
 SYL = ("bar bel bor dan dar del dor fan far gar gor hal han har kar kel "
        "kor lan lor mar mor nal nar").split()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The kernels' plain versions run many small torch operations. With
-    several test processes on one host, torch's intra-op threads contend
-    (one case of this file took 50x longer beside five copies of itself),
-    so these tests run torch on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def AhoCorasick(pats, **kw):

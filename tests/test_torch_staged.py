@@ -4,7 +4,9 @@ Same inputs, made from seeds with numpy, go through the JAX package's
 Pallas kernels G3 (`_make_flags_kernel`) and G4 (`_make_gathered_kernel`),
 run in interpret mode on the CPU as its own tests run them, and through
 the plain PyTorch versions of the port's Hopper kernels; then through both
-packages' staged pipelines and engines. The Pallas kernels get the JAX
+packages' staged pipelines and engines. G3 and the pipelines are held in
+`tests/test_torch_staged_kernels.py`, on this file's inputs, so that they
+run on another test worker than the engines. The Pallas kernels get the JAX
 package's own inputs (its stream-major layouts from `prepare`, its gather
 of the candidate rows by `jnp.take`); the port's kernels read the upload's
 row-major words and the candidates' stream ids. Every output is an
@@ -26,6 +28,7 @@ import ahocorasick_tpu_torch.ops.bitap as TB
 import ahocorasick_tpu_torch.ops.staged as TS
 from ahocorasick_tpu_torch.ops import staged_kernels as SK
 from test_torch_limb_sets import STAGED_SETS
+from torch_suite import per_test_time_limit  # noqa: F401
 
 PATS = [b"Sherlock Holmes", b"John Watson", b"Irene Adler",
         b"Inspector Lestrade", b"Professor Moriarty"]
@@ -131,43 +134,9 @@ def test_eligibility_equals_jax():
 
 
 # ---------------------------------------------------------------------------
-# Kernels: plain versions against the Pallas kernels
+# Kernels: plain versions against the Pallas kernels (G3 in
+# test_torch_staged_kernels.py)
 # ---------------------------------------------------------------------------
-def _jax_flags(jeng, jph):
-    t = jeng.fp
-    kern = JS._make_flags_kernel(*t.baked_key(), t.k, jph.Lc, jeng.halo)
-    Hw, Wc = jeng.halo // 4, jph.Lc // 4
-    return _np(pl.pallas_call(
-        kern, grid=(jph.tiles, jph.L // jph.Lc),
-        in_specs=[
-            pl.BlockSpec((Hw, R, 128), lambda i, j: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Wc, R, 128), lambda i, j: (j, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[pl.BlockSpec((1, R, 128), lambda i, j: (i, 0, 0),
-                                memory_space=pltpu.VMEM)],
-        out_shape=[jax.ShapeDtypeStruct((jph.tiles, R, 128), jnp.int32)],
-        scratch_shapes=[pltpu.VMEM((t.k, R, 128), jnp.int32)],
-        interpret=True,
-    )(jph.halo_a, jph.body)[0])
-
-
-@pytest.mark.parametrize("name", CASES)
-def test_flags_plain_equals_pallas(name):
-    """Raw flag words, halo hits included and stream 0's halo flag
-    zeroed."""
-    jeng, teng, hay = _engines(name)
-    jph, tph = jeng.prepare(hay), teng.prepare(hay)
-    want = _jax_flags(jeng, jph)
-    lo, hi, sm, em = teng.fp.device_tensors("cpu")
-    got = SK.staged_flags_plain(lo, hi, sm, em, tph.rows, teng.halo)
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert (want != 0).sum() > 5
-    # The port's engine-level flags (the wrapper on a CPU tensor).
-    np.testing.assert_array_equal(teng.flags(tph).numpy(), want)
-
-
 def _jax_gathered(jeng, jph, sid, ghal, gbody, nn, extract):
     t = jeng.full
     Ke = len(t.end_limbs)
@@ -229,37 +198,6 @@ def test_gathered_plain_equals_pallas(name, extract):
         np.testing.assert_array_equal(got[1].numpy(), want[1])
         assert (want[1] != 0).any()
     assert want[0].sum() > 0 and (want[0].reshape(-1)[ncand:] == 0).all()
-
-
-# ---------------------------------------------------------------------------
-# Pipelines against the fused JAX jits
-# ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["names", "long_pattern"])
-def test_pipeline_equals_staged_jits(name):
-    jeng, teng, hay = _engines(name)
-    jph, tph = jeng.prepare(hay), teng.prepare(hay)
-    cap = 1024
-    total, ncand = jeng.count_fn(jph, cap)()
-    tn, cand = teng.candidates(tph, cap)
-    counts, _ = teng.rescan(tph, cand, extract=False)
-    assert tn == int(ncand) and int(counts.sum()) == int(total) > 0
-
-    t = jeng.full
-    Ke = len(t.end_limbs)
-    fn = JS._staged_extract_jit(jeng.fp.baked_key(), t.baked_key(),
-                                jeng.fp.k, t.k, jph.L, jph.Lc, jph.Lc,
-                                jeng.halo, jph.tiles, cap, 4096, Ke)
-    jtot, jnc, jcand, jnnzw, jwix, jvals = fn(
-        jph.rows, jph.hrows, jph.halo_a, jph.body,
-        jnp.asarray([0, jph.n], jnp.int32))
-    np.testing.assert_array_equal(cand.numpy(), _np(jcand))
-    counts, words = teng.rescan(tph, cand, extract=True)
-    assert int(counts.sum()) == int(jtot)
-    flat = words.reshape(-1)
-    nz = torch.nonzero(flat).flatten().numpy()
-    assert len(nz) == int(jnnzw)
-    np.testing.assert_array_equal(nz, _np(jwix)[:len(nz)])
-    np.testing.assert_array_equal(flat.numpy()[nz], _np(jvals)[:len(nz)])
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ from ahocorasick_tpu_torch.ops.bitap_kernels import (
 )
 from ahocorasick_tpu_torch.ops.staged import STAGED_L, _fingerprints
 from test_torch_limb_sets import SETS, STAGED_K, STAGED_SETS
+from torch_suite import per_test_time_limit  # noqa: F401
 
 _M32 = 0xFFFFFFFF
 # Resident thread slots of an H100 SXM (132 SMs x 2048 threads), which the
@@ -52,16 +53,6 @@ RESIDENT_THREADS = 132 * 2048
 NS = 2048                   # two tiles of streams
 CAND = 1024                 # candidate lanes of G4
 LIVE = 601                  # of them live: the warp of lanes 600-607 straddles
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These scans are many small torch operations, which run many times
-    faster on one CPU thread than spread over a contended pool."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from ahocorasick_tpu_torch.ops import fingerprint as TF
 from ahocorasick_tpu_torch.ops import staged as TS
 from ahocorasick_tpu_torch.ops.bitap import LANES
 from ahocorasick_tpu_torch.utils import log
+from torch_suite import per_test_time_limit  # noqa: F401
 
 NAMES = ["Sherlock Holmes", "John Watson", "Irene Adler",
          "Inspector Lestrade", "Professor Moriarty"]

@@ -25,6 +25,7 @@ from ahocorasick_tpu.parallel.shard import count_kernel
 import ahocorasick_tpu_torch as T
 import ahocorasick_tpu_torch.ops.block_scan as TBS
 import ahocorasick_tpu_torch.ops.walk_kernels as WK
+from torch_suite import per_test_time_limit  # noqa: F401
 
 CASES = {
     # max pattern length 5 (halo 8), n not a power of two
