@@ -16,20 +16,11 @@ Architecture of the PyTorch port:
   - One host-side construction path (automata/noncontiguous.py) builds the
     automaton; a dense DFA table (automata/dfa.py) is compiled from it.
   - Unanchored searches run on the searcher's device, routed as the JAX
-    facade routes them. Over a pattern set the exact bit-parallel engine
-    accepts (`BitapEngine.eligible`), extraction tries the fingerprint
-    fused extract (ops/fingerprint.py, when it verifies on the device),
-    then the staged extract (ops/staged.py, n >= STAGED_MIN), then the
-    single-pass bit-parallel extract (ops/bitap.py); counts try the staged
-    count, then the bit-parallel count. Larger sets go to the filter
-    engines: the fingerprint engine (ops/fingerprint.py), and above
-    CASCADE_MIN_PATTERNS patterns (or when the fingerprint planner
-    declines the set) the cascade engine (ops/cascade.py) first. The
-    native C++ walk (automata/native.py) serves what they decline; short
-    haystacks take the host scalar walk, and the blocked device DFA walk
-    (ops/block_scan.py) is the last resort and the forced `dfa-scan` /
-    `device-only` backend. All match semantics are O(#matches)
-    post-filters (semantics.py).
+    facade routes them by one chain of steps (`_ROUTE` below): the
+    bit-parallel, staged, fingerprint and cascade engines (ops/), the
+    native C++ walk (automata/native.py), the host scalar walk and the
+    blocked device DFA walk (ops/block_scan.py). All match semantics are
+    O(#matches) post-filters (semantics.py).
   - Anchored searches and the leftmost+empty-pattern corner run the host
     oracle (oracle.py) — anchored walks are bounded by max_pattern_len
     transitions, so this is O(max_pattern_len) per search, not O(n).
@@ -48,7 +39,8 @@ others the noncontiguous CSR arrays.
 from __future__ import annotations
 
 import enum
-from typing import Callable, Iterable, Iterator, List, Optional, Sequence
+from typing import (Callable, Iterable, Iterator, List, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -61,6 +53,7 @@ from .ops.bitap import BitapEngine
 from .ops.block_scan import DeviceAutomaton
 from .ops.cascade import CascadeEngine
 from .ops.fingerprint import FingerprintEngine
+from .ops import staged as _staged
 from .ops.staged import StagedEngine
 from .utils.errors import MatchError
 from .utils.search import (
@@ -95,6 +88,149 @@ CASCADE_MIN_PATTERNS = 4096
 def _check_engine(mode: str) -> None:
     if mode not in ENGINE_MODES:
         raise ValueError(f"unknown engine mode {mode!r}")
+
+
+# The engines a searcher builds on demand (`AhoCorasick._engine`).
+_ENGINES = {"bitap": BitapEngine, "staged": StagedEngine,
+           "fingerprint": FingerprintEngine, "cascade": CascadeEngine,
+           "device_walk": DeviceAutomaton}
+
+
+def _run_engine(ac, eng, op, hs, start):
+    """An engine's count or match set; None where it declines."""
+    if op == "count":
+        return eng.count_matches(hs)
+    got = eng.match_pairs(hs)
+    if got is None:
+        return None
+    pids, ends = got
+    starts = ends - ac._dfa.pattern_lens[pids].astype(np.int64)
+    return semantics.MatchSet(pids, starts, ends, start)
+
+
+def _run_fused(ac, fp, op, hs, start):
+    """The fingerprint engine's extract where it verifies on the device."""
+    return None if fp.dv is None else _run_engine(ac, fp, op, hs, start)
+
+
+def _run_native_walk(ac, eng, op, hs, start):
+    """The native sequential DFA walk (automata/native.py); None where its
+    library is unavailable."""
+    from .automata import native as _native
+
+    dfa = ac._dfa
+    if op == "count":
+        got = _native.dfa_count(dfa, hs)
+        start_id = dfa.special.start_unanchored_id
+        if got is not None and 2 <= start_id <= dfa.special.max_match_id:
+            got += int(dfa.match_count[start_id])
+        return got
+    got = _native.dfa_positions(dfa, hs)
+    if got is None:
+        return None
+    return semantics.extract_match_set_from_positions(dfa, *got, start)
+
+
+def _run_host_walk(ac, eng, op, hs, start):
+    """The host scalar walk over the dense table."""
+    from .ops.block_scan import scan_states_host
+
+    return semantics.extract_match_set(
+        ac._dfa, scan_states_host(ac._dfa, hs), start
+    )
+
+
+def _run_device_walk(ac, walk, op, hs, start):
+    """The blocked device DFA walk: only compacted (end, state) pairs come
+    back from the device."""
+    if op == "count":
+        return walk.count_matches(hs)
+    if len(hs) >= (1 << 16) and not getattr(ac, "_scan_warned", False):
+        # One kernel (W1, a dependent table gather per byte) and a
+        # compaction over the full state array: well behind the filter
+        # engines, so reaching it on a large haystack means a forced
+        # engine knob (or a missing native library) routed production
+        # traffic here. Warn once per searcher.
+        ac._scan_warned = True
+        log.logger.warning(
+            "blocked device DFA walk engaged for a %d-byte haystack; "
+            "a gather per byte, not the production route — prefer "
+            "engine='auto' (bitap/fingerprint/cascade/native "
+            "selection)", len(hs),
+        )
+    ends, sids = walk.match_positions(hs)
+    return semantics.extract_match_set_from_positions(ac._dfa, ends, sids,
+                                                      start)
+
+
+class _Step(NamedTuple):
+    """A step of _ROUTE: the engine or walk it runs (``name``), the ops it
+    serves, the ``engine=`` modes that allow it and its size rule:
+    ``"device"`` (at least ``device_threshold`` bytes, unless ``engine=``
+    names this step), ``"host"`` (fewer) or ``"any"``. ``when(ac, n,
+    tried)`` adds a rule over the pattern set, the size and the steps the
+    call has tried; ``served`` says whether the route lays
+    ``served.<name>`` (the filter engines lay their own)."""
+
+    name: str
+    ops: Tuple[str, ...]
+    modes: Tuple[str, ...]
+    size: str = "any"
+    when: Optional[Callable] = None
+    served: bool = True
+    run: Callable = _run_engine
+
+
+_COUNT, _EXTRACT, _BOTH = ("count",), ("extract",), ("count", "extract")
+_BITAP_MODES = ("auto", "oracle", "device-only", "bitap")
+_FILTER_MODES = ("auto", "device-only")
+_NATIVE_MODES = ("auto", "oracle", "bitap", "fingerprint", "cascade")
+
+
+def _staged_size(ac, n, tried):
+    return n >= _staged.STAGED_MIN
+
+
+def _cascade_leads(ac, n, tried):
+    return len(ac._patterns) > CASCADE_MIN_PATTERNS
+
+
+def _cascade_follows(ac, n, tried):
+    return not _cascade_leads(ac, n, tried) and "fingerprint" not in tried
+
+
+# The route of every unanchored search, in the JAX facade's order: each
+# call runs the first step that is open to it and does not decline (an
+# engine's None). Over a set the bit-parallel engine accepts, extraction
+# tries the fingerprint fused extract, the staged extract (from
+# STAGED_MIN bytes) and the single-pass extract; counts take the staged
+# and bit-parallel counts at any size, under every mode that leaves the
+# engine to them, `oracle` included. Larger sets go to the filter
+# engines: past CASCADE_MIN_PATTERNS patterns the cascade leads; below,
+# it is offered only where the fingerprint step was closed to the call.
+# The native walk serves what they decline, short extractions take the
+# host walk, and the device walk is the last resort and the forced
+# `dfa-scan` / `device-only` route. `engine="bitap"` over a set the
+# bit-parallel engine declines takes the native walk.
+_ROUTE = (
+    _Step("fingerprint", _EXTRACT, _FILTER_MODES, "device",
+          when=lambda ac, n, tried: ac._eligible("bitap"), served=False,
+          run=_run_fused),
+    _Step("staged", _EXTRACT, ("auto",), "device", when=_staged_size),
+    _Step("staged", _COUNT, ("auto", "bitap"), when=_staged_size),
+    _Step("bitap", _EXTRACT, _BITAP_MODES, "device"),
+    _Step("bitap", _COUNT, _BITAP_MODES),
+    _Step("cascade", _BOTH, _FILTER_MODES + ("cascade",), "device",
+          when=_cascade_leads, served=False),
+    _Step("fingerprint", _BOTH, _FILTER_MODES + ("fingerprint",), "device",
+          served=False),
+    _Step("cascade", _BOTH, _FILTER_MODES + ("cascade",), "device",
+          when=_cascade_follows, served=False),
+    _Step("native_walk", _BOTH, _NATIVE_MODES, run=_run_native_walk),
+    _Step("host_walk", _EXTRACT, _NATIVE_MODES + ("dfa-scan",), "host",
+          run=_run_host_walk),
+    _Step("device_walk", _BOTH, ENGINE_MODES, run=_run_device_walk),
+)
 
 
 def _resolve_device(device) -> torch.device:
@@ -165,14 +301,8 @@ class AhoCorasick:
                 nfa.alphabet_len = 256
 
         self._dfa = build_dfa(self._match_nfa)
-        self._dev_automaton: Optional[DeviceAutomaton] = None
-        self._bitap: Optional[BitapEngine] = None
-        self._bitap_checked = False
-        self._staged: Optional[StagedEngine] = None
-        self._fp: Optional[FingerprintEngine] = None
-        self._fp_checked = False
-        self._cascade: Optional[CascadeEngine] = None
-        self._cascade_checked = False
+        self._engines = {}      # name -> engine, None where ineligible
+        self._eligibility = {}  # name -> whether the set is in its bounds
         self._pre = None
         self._pre_checked = False
         self._dense_depth = builder._dense_depth
@@ -267,130 +397,36 @@ class AhoCorasick:
     # ------------------------------------------------------------------
     # Internals
     # ------------------------------------------------------------------
-    def _device_automaton(self) -> DeviceAutomaton:
-        """The blocked device DFA walk (ops/block_scan.py)."""
-        if self._dev_automaton is None:
-            self._dev_automaton = DeviceAutomaton(self._dfa,
-                                                  self._torch_device)
-        return self._dev_automaton
+    def _eligible(self, name: str) -> bool:
+        """Whether the pattern set is within engine ``name``'s bounds,
+        decided once per searcher."""
+        if name not in self._eligibility:
+            p, ci = self._patterns, self._case_insensitive
+            self._eligibility[name] = bool({
+                "bitap": lambda: BitapEngine.eligible(p),
+                "staged": lambda: StagedEngine.set_eligible(p, ci),
+                "fingerprint": lambda: FingerprintEngine.eligible(p, ci),
+                "cascade": lambda: CascadeEngine.eligible(p, ci),
+                "device_walk": lambda: True,
+            }[name]())
+        return self._eligibility[name]
 
-    def _bitap_engine(self) -> Optional[BitapEngine]:
-        """The bit-parallel device engine (ops/bitap.py), or None when the
-        pattern set is out of its bounds (empty patterns, > 2048 total
-        pattern bytes, a pattern longer than 2048 bytes) or the mode
-        forces the DFA walk or a filter engine."""
-        if self._engine_mode in ("dfa-scan", "fingerprint", "cascade"):
-            return None
-        if not self._bitap_checked:
-            self._bitap_checked = True
-            if BitapEngine.eligible(self._patterns):
-                self._bitap = BitapEngine(
-                    self._patterns, self._case_insensitive,
-                    self._torch_device,
-                )
-                log.debug(
-                    "bitap engine: K=%d limbs, halo=%d, pad_byte=%r",
-                    self._bitap.tables.k, self._bitap.halo,
-                    self._bitap.tables.pad_byte,
-                )
-            else:
-                log.debug("bitap ineligible; filter engines or native walk")
-        return self._bitap
-
-    def _staged_engine(self, n: int) -> Optional[StagedEngine]:
-        """Two-stage fingerprint-prefilter engine (ops/staged.py) for
-        haystacks of at least STAGED_MIN bytes, or None when ineligible."""
-        if self._engine_mode not in ("auto", "bitap"):
-            return None
-        if not StagedEngine.eligible(
-            self._patterns, n, self._case_insensitive
-        ):
-            return None
-        if self._staged is None:
-            self._staged = StagedEngine(
-                self._patterns, self._case_insensitive, self._torch_device
-            )
-            log.debug(
-                "staged engine: Kf=%d fingerprint limbs vs K=%d full",
-                self._staged.fp.k, self._staged.full.k,
-            )
-        return self._staged
-
-    def _fingerprint_engine(self, n: int) -> Optional[FingerprintEngine]:
-        """Bucketed fingerprint filter + exact verification
-        (ops/fingerprint.py). None when ineligible, below the device
-        threshold, or previously found filter-hostile (candidate-dense
-        input; the native walk is then faster). Its calls return None on
-        filter-hostile input."""
-        forced = self._engine_mode == "fingerprint"
-        if self._engine_mode not in ("auto", "device-only", "fingerprint"):
-            return None
-        if not forced and n < self._device_threshold:
-            return None
-        if not self._fp_checked:
-            self._fp_checked = True
-            if FingerprintEngine.eligible(
-                self._patterns, self._case_insensitive
-            ):
-                self._fp = FingerprintEngine(
-                    self._patterns, self._case_insensitive,
-                    self._torch_device,
-                )
-                log.debug(
-                    "fingerprint engine: %d buckets, K=%d limbs, pad=%r",
-                    self._fp.tables.num_buckets, self._fp.tables.k,
-                    self._fp.tables.pad_byte,
-                )
-        if self._fp is not None and self._fp.hostile and not forced:
-            log.count("declined.fingerprint")
-            return None
-        return self._fp
-
-    def _cascade_engine(self, n: int) -> Optional[CascadeEngine]:
-        """Cascade engine (ops/cascade.py): the device path for pattern
-        sets beyond the fingerprint planner's bucket budget (10k-100k+
-        patterns). None when ineligible, below the device threshold, or
-        previously found hostile."""
-        forced = self._engine_mode == "cascade"
-        if self._engine_mode not in ("auto", "device-only", "cascade"):
-            return None
-        if not forced and n < self._device_threshold:
-            return None
-        if not self._cascade_checked:
-            self._cascade_checked = True
-            if CascadeEngine.eligible(
-                self._patterns, self._case_insensitive
-            ):
-                self._cascade = CascadeEngine(
-                    self._patterns, self._case_insensitive,
-                    self._torch_device,
-                )
-        if (self._cascade is not None and self._cascade.hostile
-                and not forced):
-            log.count("declined.cascade")
-            return None
-        return self._cascade
-
-    def _filter_engines(self, n: int) -> list:
-        """Filter engines (fingerprint / cascade) in preference order.
-
-        Both share the match_pairs/count_matches -> Optional protocol
-        (None = hostile input, try the next engine / native walk). Past
-        CASCADE_MIN_PATTERNS the cascade's deduped-prefix coarse filter
-        plus exact-membership probes scales better than per-bucket
-        fingerprint chains, so it leads; below, the fingerprint engine
-        serves and the cascade is built only when the fingerprint engine
-        is unavailable."""
-        fp = self._fingerprint_engine(n)
-        prefer_cascade = (
-            len(self._patterns) > CASCADE_MIN_PATTERNS
-            or self._engine_mode == "cascade"
-        )
-        if fp is not None and not prefer_cascade:
-            return [fp]
-        cas = self._cascade_engine(n)
-        pair = (cas, fp) if prefer_cascade else (fp, cas)
-        return [e for e in pair if e is not None]
+    def _engine(self, name: str):
+        """Engine ``name`` of ``_ENGINES``, built by the first call that
+        asks for it, or None where the pattern set is out of its bounds.
+        The route (``_ROUTE``) decides which calls ask."""
+        if name not in self._engines:
+            eng = None
+            if self._eligible(name):
+                if name == "device_walk":
+                    eng = DeviceAutomaton(self._dfa, self._torch_device)
+                else:
+                    eng = _ENGINES[name](self._patterns,
+                                        self._case_insensitive,
+                                        self._torch_device)
+                log.debug("built the %s engine", name)
+            self._engines[name] = eng
+        return self._engines[name]
 
     def _oracle_automaton(self):
         """The automaton backing host walk paths, per the reported kind:
@@ -453,92 +489,43 @@ class AhoCorasick:
             return True
         return False
 
-    def _match_set(self, input: Input) -> semantics.MatchSet:
-        """Full overlapping match set of input's span.
-
-        Device engines serve spans of at least `device_threshold` bytes, in
-        the JAX facade's order; below it a host walk over the dense table
-        is faster than a device dispatch.
-        """
-        hs = input.haystack[input.start:input.end]
-
-        def match_set(pids, ends):
-            starts = ends - self._dfa.pattern_lens[pids].astype(np.int64)
-            return semantics.MatchSet(pids, starts, ends, input.start)
-
-        bitap = self._bitap_engine()
-        if bitap is not None and (
-            len(hs) >= self._device_threshold
-            or self._engine_mode == "bitap"
-        ):
-            # Extraction routing, as in the JAX facade: the fingerprint
-            # fused extract (a 1-bit candidate bitmap + device verify),
-            # then the staged extract (end words for flagged streams
-            # only), then the single-pass bit-parallel extract, the
-            # always-eligible floor. Every engine is exact; earlier ones
-            # decline (None) on hostile inputs or ineligible sets.
-            if self._engine_mode != "bitap":
-                fp = self._fingerprint_engine(len(hs))
-                if fp is not None and fp.dv is not None:
-                    got = fp.match_pairs(hs)
-                    if got is not None:
-                        return match_set(*got)
-                staged = self._staged_engine(len(hs))
-                if staged is not None:
-                    got = staged.match_pairs(hs)
-                    if got is not None:
-                        log.count("served.staged")
-                        return match_set(*got)
-            log.count("served.bitap")
-            return match_set(*bitap.match_pairs(hs))
-        for eng in self._filter_engines(len(hs)):
-            got = eng.match_pairs(hs)
-            if got is not None:  # None: filter-hostile input, fall back
-                return match_set(*got)
-        if self._engine_mode not in ("dfa-scan", "device-only"):
-            # Pattern set beyond the device engines' bounds, a
-            # filter-hostile input or a short haystack: the native
-            # sequential DFA walk.
-            from .automata import native as _native
-
-            got = _native.dfa_positions(self._dfa, hs)
+    def _route(self, op: str, hs: bytes, start: int = 0):
+        """Run the first step of ``_ROUTE`` that serves ``op`` ("count" or
+        "extract") over ``hs``: the count, or the match set with offsets
+        from ``start``. Lays ``served.<step>`` for the steps whose engine
+        does not, and ``declined.<engine>`` where an engine found hostile
+        by an earlier call is passed over."""
+        n, mode, tried = len(hs), self._engine_mode, set()
+        below = n < self._device_threshold
+        for step in _ROUTE:
+            if op not in step.ops or mode not in step.modes:
+                continue
+            if step.size == "device" and below and mode != step.name:
+                continue
+            if step.size == "host" and not below:
+                continue
+            if step.when is not None and not step.when(self, n, tried):
+                continue
+            eng = None
+            if step.name in _ENGINES:
+                eng = self._engine(step.name)
+                if eng is None:
+                    continue
+                if getattr(eng, "hostile", False) and mode != step.name:
+                    log.count("declined." + step.name)
+                    continue
+            tried.add(step.name)
+            got = step.run(self, eng, op, hs, start)
             if got is not None:
-                log.count("served.native_walk")
-                ends, sids = got
-                return semantics.extract_match_set_from_positions(
-                    self._dfa, ends, sids, input.start
-                )
-        if (
-            len(hs) < self._device_threshold
-            and self._engine_mode != "device-only"
-        ):
-            from .ops.block_scan import scan_states_host
+                if step.served:
+                    log.count("served." + step.name)
+                return got
+        raise AssertionError("the device walk serves every call")
 
-            log.count("served.host_walk")
-            states = scan_states_host(self._dfa, hs)
-            return semantics.extract_match_set(
-                self._dfa, states, input.start
-            )
-        # The blocked device DFA walk: only compacted (end, state) pairs
-        # come back from the device.
-        if len(hs) >= (1 << 16) and not getattr(self, "_scan_warned", False):
-            # One kernel (W1, a dependent table gather per byte) and a
-            # compaction over the full state array: well behind the
-            # filter engines, so reaching it on a large haystack means a
-            # forced engine knob (or a missing native library) routed
-            # production traffic here. Warn once per searcher.
-            self._scan_warned = True
-            log.logger.warning(
-                "blocked device DFA walk engaged for a %d-byte haystack; "
-                "a gather per byte, not the production route — prefer "
-                "engine='auto' (bitap/fingerprint/cascade/native "
-                "selection)", len(hs),
-            )
-        log.count("served.device_walk")
-        ends, sids = self._device_automaton().match_positions(hs)
-        return semantics.extract_match_set_from_positions(
-            self._dfa, ends, sids, input.start
-        )
+    def _match_set(self, input: Input) -> semantics.MatchSet:
+        """Full overlapping match set of input's span (see ``_ROUTE``)."""
+        return self._route("extract", input.haystack[input.start:input.end],
+                           input.start)
 
     def _match_set_oracle(self, input: Input) -> semantics.MatchSet:
         """Oracle-computed match set (tests / debugging)."""
@@ -699,34 +686,7 @@ class AhoCorasick:
         self._check_anchored(input)
         if not self._match_kind.is_standard():
             raise MatchError.unsupported_overlapping(self._match_kind)
-        hs = input.haystack[input.start:input.end]
-        bitap = self._bitap_engine()
-        if bitap is not None:
-            staged = self._staged_engine(len(hs))
-            if staged is not None:
-                got = staged.count_matches(hs)
-                if got is not None:  # None: candidate overflow, rescan
-                    log.count("served.staged")
-                    return got
-            log.count("served.bitap")
-            return bitap.count_matches(hs)
-        for eng in self._filter_engines(len(hs)):
-            got = eng.count_matches(hs)
-            if got is not None:  # None: filter-hostile input, fall back
-                return got
-        if self._engine_mode not in ("dfa-scan", "device-only"):
-            from .automata import native as _native
-
-            got = _native.dfa_count(self._dfa, hs)
-            if got is not None:
-                log.count("served.native_walk")
-                extra = 0
-                start_id = self._dfa.special.start_unanchored_id
-                if 2 <= start_id <= self._dfa.special.max_match_id:
-                    extra = int(self._dfa.match_count[start_id])
-                return got + extra
-        log.count("served.device_walk")
-        return self._device_automaton().count_matches(hs)
+        return self._route("count", input.haystack[input.start:input.end])
 
     # ------------------------------------------------------------------
     # Replacing (ahocorasick.rs:651-906)

@@ -251,6 +251,18 @@ def upload(buf: np.ndarray, device) -> torch.Tensor:
         return torch.from_numpy(buf).to(device)
 
 
+def stage(hs: bytes, total: int, pad: int, device) -> torch.Tensor:
+    """A call's host staging of a haystack: ``hs`` in a buffer of
+    ``total`` bytes filled out with ``pad``, uploaded to ``device`` as
+    int32 words."""
+    with log.span("prepare.pack"):
+        buf = np.full(total, pad, np.uint8) if pad else np.zeros(
+            total, np.uint8
+        )
+        buf[: len(hs)] = np.frombuffer(hs, np.uint8)
+    return upload(buf.view(np.int32), device)
+
+
 @log.spanned("prepare.layout")
 def _to_stream_major(x32: torch.Tensor, L: int, tiles: int, H: int):
     """Transpose packed words to the kernels' stream-major layout.
@@ -325,15 +337,6 @@ class BitapEngine:
             return max(H, base, 4), 1
         return _layout_search(n, H)
 
-    def _pack(self, hs: bytes, L: int, tiles: int,
-              pad: int = 0) -> np.ndarray:
-        total = tiles * LANES * L
-        buf = np.full(total, pad, np.uint8) if pad else np.zeros(
-            total, np.uint8
-        )
-        buf[: len(hs)] = np.frombuffer(hs, np.uint8)
-        return buf.view(np.int32)
-
     def _use_baked(self, n: int) -> bool:
         return n >= BAKED_MIN and self.tables.pad_byte is not None
 
@@ -361,10 +364,8 @@ class BitapEngine:
         else:
             baked = bool(baked) and self.tables.pad_byte is not None
         pad = self.tables.pad_byte if baked else 0
-        with log.span("prepare.pack"):
-            buf = self._pack(hs, L, tiles, pad=pad)
-        halo_a, body = _to_stream_major(upload(buf, self.device), L, tiles,
-                                        self.halo)
+        x32 = stage(hs, tiles * LANES * L, pad, self.device)
+        halo_a, body = _to_stream_major(x32, L, tiles, self.halo)
         return PackedHaystack(n, L, tiles, baked, halo_a, body, hs)
 
     def _scan(self, ph: PackedHaystack, extract: bool):

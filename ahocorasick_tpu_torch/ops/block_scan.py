@@ -44,7 +44,7 @@ import torch
 from ..automata.dfa import DenseDFA
 from ..utils import log
 from . import walk_kernels as WK
-from .bitap import upload
+from .bitap import stage
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,17 +72,14 @@ def choose_block_len(n: int, halo: int) -> int:
     return max(n // lanes, 128)
 
 
-def pack_haystack(haystack: bytes, halo: int):
-    """The walk's host buffer: the haystack zero-padded to its size bucket,
-    rounded up to whole blocks; returns (buf uint8, n, block_len, halo),
-    the halo clamped to the bucket."""
-    n = len(haystack)
+def walk_layout(n: int, halo: int):
+    """The walk's buffer for an n-byte haystack: its size bucket rounded
+    up to whole blocks; returns (buffer bytes, block_len, halo), the halo
+    clamped to the bucket."""
     padded = _size_bucket(n)
     halo = min(halo, padded)
     block_len = choose_block_len(padded, halo)
-    buf = np.zeros(_round_up(padded, block_len), dtype=np.uint8)
-    buf[:n] = np.frombuffer(haystack, dtype=np.uint8)
-    return buf, n, block_len, halo
+    return _round_up(padded, block_len), block_len, halo
 
 
 def scan_states_host(dfa: DenseDFA, haystack: bytes) -> np.ndarray:
@@ -129,11 +126,12 @@ class DeviceAutomaton:
     # ------------------------------------------------------------------
     @log.spanned("prepare")
     def _prepare(self, haystack: bytes):
-        """Pad the haystack into a bucketed device buffer; returns
-        (buf, n, block_len, halo)."""
-        with log.span("prepare.pack"):
-            buf, n, block_len, halo = pack_haystack(haystack, self.halo)
-        return upload(buf, self.device), n, block_len, halo
+        """Pad the haystack with zeros into a bucketed device buffer of
+        bytes; returns (buf, n, block_len, halo)."""
+        n = len(haystack)
+        total, block_len, halo = walk_layout(n, self.halo)
+        buf = stage(haystack, total, 0, self.device).view(torch.uint8)
+        return buf, n, block_len, halo
 
     def _states(self, haystack: bytes) -> Tuple[torch.Tensor, int]:
         buf, n, block_len, halo = self._prepare(haystack)

@@ -60,15 +60,15 @@ import torch
 
 from ..utils import log
 from . import candidate_kernels as _ck
-from . import fingerprint_kernels as _kernels
 from .bitap import (LANES, BitapEngine, _layout_search, _pow2,
-                    _to_stream_major, upload)
+                    _to_stream_major, stage)
 from .candidate_kernels import FP_LEN, KEY_LEN, LONG
 from .compaction import select_matches
 from .fingerprint import (
     FingerprintTables,
     _fold,
     _verify_buffer,
+    bitmap,
     plan_buckets,
     strong_pad_byte,
 )
@@ -490,14 +490,7 @@ class CascadeEngine:
         not), else G5 masked to (0, n)."""
         n = len(hs)
         L, tiles = self._layout(max(n, 1))
-        total = tiles * LANES * L
-        pad = self.pad_byte or 0
-        with log.span("prepare.pack"):
-            buf = np.full(total, pad, np.uint8) if pad else np.zeros(
-                total, np.uint8
-            )
-            buf[:n] = np.frombuffer(hs, np.uint8)
-        x32 = upload(buf.view(np.int32), self.device)
+        x32 = stage(hs, tiles * LANES * L, self.pad_byte or 0, self.device)
         halo_a, body = _to_stream_major(x32, L, tiles, self.halo)
         u8f = _verify_buffer(x32, self.tables.W, self.ci)
         baked = self.pad_byte is not None
@@ -508,14 +501,6 @@ class CascadeEngine:
     def _limits(self, n: int) -> Tuple[int, int]:
         lim = max(CAND_FLOOR, n >> CAND_SHIFT)
         return lim, max(CAND_FLOOR, n >> EXP_SHIFT)
-
-    def _bitmap(self, ph: CascadeHaystack, coarse):
-        lo, hi, sm, em = coarse
-        if ph.baked:
-            return _kernels.fp_bitmap_baked(lo, hi, sm, em, ph.halo_a,
-                                            ph.body)
-        return _kernels.fp_bitmap_generic(lo, hi, sm, em, ph.halo_a,
-                                          ph.body, 0, ph.n)
 
     def _run(self, ph: CascadeHaystack, extract: bool):
         """Adaptive pipeline on the main pattern set. Returns the count or
@@ -535,7 +520,7 @@ class CascadeEngine:
             # One pass: the bitmap, S1, S3, the cumsum and S4, then one
             # read of the scalars.
             log.count("passes")
-            _, bmp = self._bitmap(ph, dv["coarse"])
+            _, bmp = bitmap(dv["coarse"], ph)
             ncand, e_pos, live = _ck.cand_select(bmp, L, cap_c)
             total, total_e, flags = verify_candidates(
                 ph.u8f, e_pos, live, n, t, dv, cap_e, extract)

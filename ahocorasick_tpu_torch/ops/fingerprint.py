@@ -51,8 +51,8 @@ from .bitap import (
     _pow2,
     _to_stream_major,
     pack_chains,
+    stage,
     tables_on,
-    upload,
 )
 from .candidate_kernels import FP_LEN
 from .compaction import select_matches
@@ -652,6 +652,17 @@ class FpHaystack:
         self.hs = hs
 
 
+def bitmap(tables, ph):
+    """(counts, bitmap) of one filter pass with ``tables`` (lo, hi, sm,
+    em) over an uploaded layout (``FpHaystack``, ``CascadeHaystack``): G6
+    on a pad-byte layout, else G5 masked to [0, n)."""
+    lo, hi, sm, em = tables
+    if ph.baked:
+        return _kernels.fp_bitmap_baked(lo, hi, sm, em, ph.halo_a, ph.body)
+    return _kernels.fp_bitmap_generic(lo, hi, sm, em, ph.halo_a, ph.body, 0,
+                                      ph.n)
+
+
 # Filter plan ladder: per-level limb budgets. The engine starts at the
 # cheapest level and escalates only when the measured candidate rate on
 # real input exceeds ESC (the runtime analog of the reference declaring
@@ -745,14 +756,6 @@ class FingerprintEngine:
         L, tiles = _layout_search(n, self.halo)
         return L, min(L, 512), tiles
 
-    def _pack(self, hs: bytes, L: int, tiles: int, pad: int) -> np.ndarray:
-        total = tiles * LANES * L
-        buf = np.full(total, pad, np.uint8) if pad else np.zeros(
-            total, np.uint8
-        )
-        buf[: len(hs)] = np.frombuffer(hs, np.uint8)
-        return buf.view(np.int32)
-
     def _args(self):
         return self.tables.device_tensors(self.device)
 
@@ -766,24 +769,12 @@ class FingerprintEngine:
         # upload serves escalations. The pad-byte kernel (G6) serves
         # inputs of at least FP_BAKED_MIN, as in the JAX package.
         baked = self.pad_byte is not None and n >= FP_BAKED_MIN
-        with log.span("prepare.pack"):
-            buf = self._pack(hs, L, tiles, self.pad_byte or 0)
-        x32 = upload(buf, self.device)
+        x32 = stage(hs, tiles * LANES * L, self.pad_byte or 0, self.device)
         halo_a, body = _to_stream_major(x32, L, tiles, self.halo)
         u8f = None
         if self.dv is not None and n >= FP_DV_MIN:
             u8f = _verify_buffer(x32, self.dv.W, self.ci)
         return FpHaystack(n, L, Lc, tiles, baked, halo_a, body, u8f, hs)
-
-    def bitmap(self, ph: FpHaystack):
-        """(counts, bitmap) of the current plan's tables: G6 on a
-        pad-byte layout, else G5 masked to [0, n)."""
-        lo, hi, sm, em = self._args()
-        if ph.baked:
-            return _kernels.fp_bitmap_baked(lo, hi, sm, em, ph.halo_a,
-                                            ph.body)
-        return _kernels.fp_bitmap_generic(lo, hi, sm, em, ph.halo_a,
-                                          ph.body, 0, ph.n)
 
     def _hostile_limit(self, n: int) -> int:
         return max(CAND_FLOOR, n >> CAND_SHIFT)
@@ -807,7 +798,7 @@ class FingerprintEngine:
             # cap_c candidates before their count is known, as the JAX
             # dispatch does), then one read of both scalars.
             log.count("passes")
-            _, bmp = self.bitmap(ph)
+            _, bmp = bitmap(self._args(), ph)
             ncand, e_pos, live = _ck.cand_select(bmp, L, cap_c)
             ok, pid, end, total = _ck.fp_verify(ph.u8f, e_pos, live, n,
                                                 dv_tabs, self.dv.W, extract)
@@ -863,7 +854,7 @@ class FingerprintEngine:
         cap = min(4096, max(512, _pow2(n >> 8)))
         while True:
             log.count("passes")
-            _, bmp = self.bitmap(ph)
+            _, bmp = bitmap(self._args(), ph)
             ncand, e_pos, live = _rank_select(bmp, ph.L, cap)
             log.count("candidates", ncand)
             if ncand > esc and self._escalate():

@@ -48,7 +48,7 @@ from .bitap import (
     _pow2,
     _round_tiles,
     decode_match_words,
-    upload,
+    stage,
 )
 from .compaction import select_nonzero_words
 
@@ -99,7 +99,14 @@ class StagedEngine:
     @classmethod
     def eligible(cls, patterns: List[bytes], n: int,
                  case_insensitive: bool = False) -> bool:
-        if n < STAGED_MIN or not BitapEngine.eligible(patterns):
+        return n >= STAGED_MIN and cls.set_eligible(patterns,
+                                                    case_insensitive)
+
+    @classmethod
+    def set_eligible(cls, patterns: List[bytes],
+                     case_insensitive: bool = False) -> bool:
+        """The pattern set's part of `eligible`: whatever the size."""
+        if not BitapEngine.eligible(patterns):
             return False
         fp = _fingerprints(patterns)
         # Staging pays off when fingerprints are materially cheaper.
@@ -129,10 +136,7 @@ class StagedEngine:
         ns = tiles * LANES
         pad = self.full.pad_byte
         assert pad is not None
-        with log.span("prepare.pack"):
-            buf = np.full(ns * L, pad, np.uint8)
-            buf[:n] = np.frombuffer(hs, np.uint8)
-        rows = upload(buf.view(np.int32), self.device)
+        rows = stage(hs, ns * L, pad, self.device)
         return StagedHaystack(n, L, Lc, tiles, rows.view(ns, L // 4))
 
     # ------------------------------------------------------------------

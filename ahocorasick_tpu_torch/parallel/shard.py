@@ -50,6 +50,7 @@ from ..ahocorasick import _resolve_device
 from ..ops import bitap as _bitap
 from ..ops import bitap_kernels as _bk
 from ..ops import fingerprint_kernels as _fk
+from ..ops import staged as _staged
 from ..ops import staged_kernels as _sk
 from ..ops.bitap import LANES, _pow2, _to_stream_major, decode_match_words
 from ..ops import walk_kernels as _wk
@@ -502,19 +503,22 @@ class ShardedSearcher:
     search/replace is the single-device code path running over
     mesh-gathered match sets (the reference's stream contract,
     automaton.rs:1036-1244, with the roll-buffer carry generalized to
-    shard halos)."""
+    shard halos). Its route is its own, whatever ``engine=`` says: the
+    bit-parallel engine where the set is in its bounds (counts take the
+    staged engine where each shard holds STAGED_MIN bytes), else the
+    fingerprint engine."""
 
     def __init__(self, ac, mesh: Optional[Mesh] = None):
         from ..utils.errors import MatchError
 
         self.ac = ac
         self.mesh = mesh if mesh is not None else make_mesh()
-        self._eng = ac._bitap_engine()
+        self._eng = ac._engine("bitap")
         self._fp_eng = None
         if self._eng is None:
             # Pattern sets beyond the exact engine's bounds shard via
             # the fingerprint filter (verification host-side).
-            self._fp_eng = ac._fingerprint_engine(1 << 62)
+            self._fp_eng = ac._engine("fingerprint")
             if self._fp_eng is None:
                 raise MatchError(
                     "unsupported-stream",
@@ -565,7 +569,9 @@ class ShardedSearcher:
         # two-stage count leads when the PER-SHARD size clears its
         # floor, so sharded large counts do not silently run a
         # different engine than single-device ones.
-        staged = self.ac._staged_engine(-(-len(hs) // self.mesh.size))
+        staged = None
+        if -(-len(hs) // self.mesh.size) >= _staged.STAGED_MIN:
+            staged = self.ac._engine("staged")
         if staged is not None:
             return sharded_staged_count(staged, hs, self.mesh)
         return sharded_bitap_count(self._eng, hs, self.mesh)

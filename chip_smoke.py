@@ -1131,7 +1131,7 @@ def main() -> int:
     names = [p.decode() for p in NAMES]
     ac = AhoCorasick(names, device=dev)
     ac_bitap = AhoCorasick(names, device=dev, engine="bitap")
-    eng = ac._bitap_engine()
+    eng = ac._engine("bitap")
     lo, hi, sm, em = eng._args()
 
     # 3. Staged count, 64 MiB ---------------------------------------------------
@@ -1140,7 +1140,7 @@ def main() -> int:
     truth64 = host_pairs(NAMES, hay64)
     got, c = drive(lambda: ac.count_matches(hay64), ["G3", "G4"])
     check("staged count 64 MiB", got, len(truth64))
-    st = ac._staged
+    st = ac._engines["staged"]
     sph = st.prepare(hay64)
     (flo, fhi, fsm, fem), (slo, shi, ssm, sem) = st._args()
     fargs = (flo, fhi, fsm, fem, sph.rows, st.halo)
@@ -1213,7 +1213,7 @@ def main() -> int:
 
     nopad = [bytes(range(8 * i, 8 * i + 8)) for i in range(32)]
     ac_np = AhoCorasick(nopad, device=dev)
-    eng_np = ac_np._bitap_engine()
+    eng_np = ac_np._engine("bitap")
     assert eng_np.tables.pad_byte is None
     hay_np = random_with(nopad, 64 * MIB, 20_000, rng)
     got, _ = drive(lambda: ac_np.count_matches(hay_np), ["G1"])
@@ -1226,7 +1226,7 @@ def main() -> int:
 
     k229 = [bytes([i]) + b"ab" for i in range(256)]
     ac_k = AhoCorasick(k229, device=dev)
-    eng_k = ac_k._bitap_engine()
+    eng_k = ac_k._engine("bitap")
     assert eng_k.tables.k == 229
     hay_k = random_with(k229, 1 * MIB, 3000, rng)
     got, _ = drive(lambda: ac_k.count_matches(hay_k), ["G1"])
@@ -1277,7 +1277,7 @@ def main() -> int:
             got = len(got)
         else:
             acl = AhoCorasick(pats, device=dev)
-            assert acl._staged_engine(n) is None
+            assert n < TS.STAGED_MIN or not acl._eligible("staged")
             got, c = drive(lambda: acl.count_matches(hay), [kernel])
             check(f"K={K} {what}", got, len(truth))
         plan = TK.generic_plan if kernel == "G1" else TK.baked_plan
@@ -1300,7 +1300,7 @@ def main() -> int:
         f"({time.time() - t0:.1f} s)")
     # The 64 MiB count of the 128-word set, timed end to end (section 15).
     ac_k103 = AhoCorasick(lsets[103], device=dev)
-    eng_k103 = ac_k103._bitap_engine()
+    eng_k103 = ac_k103._engine("bitap")
     _, _, hay_k103 = layouts[103, 64 * MIB, "G2"]
     n_k103 = counts_of[103, 64 * MIB]
 
@@ -1313,7 +1313,7 @@ def main() -> int:
     (got_it, _), h6i = drive_held(lambda: triples(ac.find_iter(hay16)),
                                   ("G6",) + FP_STAGES, only=FP_STAGES)
     check("fingerprint find_iter 16 MiB", got_it, want_it16)
-    fp = ac._fp
+    fp = ac._engines["fingerprint"]
     assert fp.dv is not None
     ph16 = fp.prepare(hay16)
     assert ph16.baked and ph16.u8f is not None
@@ -1347,8 +1347,8 @@ def main() -> int:
     got, c = drive(lambda: triples(ac7.find_overlapping_iter(hay7)),
                    ["G3", "G4"])
     check("staged extract 16 MiB", got, overlapping_order(pats7, truth7))
-    assert ac7._fp is not None and ac7._fp.dv is None
-    st7 = ac7._staged
+    assert ac7._engines["fingerprint"].dv is None
+    st7 = ac7._engines["staged"]
     ph7 = st7.prepare(hay7)
     ncand7, cand7 = st7.candidates(ph7, st7._cap_s)
     sid7 = cand7.to(torch.int32).reshape(-1, 8, 128)
@@ -1383,7 +1383,7 @@ def main() -> int:
                                 ["G3", "G4"], all_launches)
     check("100 words staged count 64 MiB", got, n_w100)
     w_plans = (SK.flags_plan, SK.gathered_plan)
-    st_w100 = ac_w100._staged
+    st_w100 = ac_w100._engines["staged"]
     assert (st_w100.fp.k, st_w100.full.k) == (75, 83), (st_w100.fp.k,
                                                         st_w100.full.k)
     # G3 runs once per candidate cap the count tries: the first cap is an
@@ -1404,8 +1404,8 @@ def main() -> int:
         lambda: triples(ac_wl.find_overlapping_iter(hay_wl)), ["G3", "G4"],
         all_launches)
     check("100 words + LONG staged extract 16 MiB", got, truth_wl)
-    assert ac_wl._fp is not None and ac_wl._fp.dv is None
-    st_wl = ac_wl._staged
+    assert ac_wl._engines["fingerprint"].dv is None
+    st_wl = ac_wl._engines["staged"]
     assert (st_wl.full.k, len(st_wl.full.end_limbs), st_wl.halo) == (
         85, 83, 128), (st_wl.full.k, st_wl.halo)
     wl_plan = SK.gathered_plan
@@ -1430,7 +1430,7 @@ def main() -> int:
     truth_d = triples(native.find_overlapping_iter(hay_d))
     native_s = time.time() - t1
     assert native.count_matches(hay_d) == len(truth_d)
-    assert ac_d._bitap_engine() is None
+    assert ac_d._engine("bitap") is None
     (got, cd), hd = drive_held(lambda: ac_d.count_matches(hay_d),
                                ("G6",) + FP_STAGES, only=FP_STAGES)
     check("dict1k count 64 MiB", got, len(truth_d))
@@ -1438,7 +1438,7 @@ def main() -> int:
         lambda: triples(ac_d.find_overlapping_iter(hay_d)),
         ("G6",) + FP_STAGES, only=FP_STAGES)
     check("dict1k find_overlapping_iter 64 MiB", got_d, truth_d)
-    fpd = ac_d._fp
+    fpd = ac_d._engines["fingerprint"]
     phd = fpd.prepare(hay_d)
     fd = fpd._args() + (phd.halo_a, phd.body)
     err("G6", FK.fp_bitmap_baked(*fd), FK.fp_bitmap_plain(*fd, None))
@@ -1471,7 +1471,7 @@ def main() -> int:
     truth_c = triples(native_c.find_overlapping_iter(hay_c))
     native_c_s = time.time() - t1
     assert native_c.count_matches(hay_c) == len(truth_c)
-    assert ac_c._bitap_engine() is None
+    assert ac_c._engine("bitap") is None
     c_stages = cascade_stages(dict100k)
     first = {}
 
@@ -1484,12 +1484,13 @@ def main() -> int:
                                only=c_stages)
     first_s = first["s"]
     check("dict100k count", got, len(truth_c))
-    cas = ac_c._cascade
+    cas = ac_c._engines.get("cascade")
     # The facade took the cascade (it leads above CASCADE_MIN_PATTERNS):
     # the engine ran a pass and was not found hostile, and the
-    # fingerprint engine it also built never verified a candidate.
+    # fingerprint engine, if it was built, never verified a candidate.
+    fp_c = ac_c._engines.get("fingerprint")
     if (cas is None or cas.hostile or cas.last_caps is None
-            or getattr(ac_c._fp, "last_caps", None) is not None):
+            or getattr(fp_c, "last_caps", None) is not None):
         raise AssertionError("dict100k did not take the cascade engine")
     (got_c, cx), hcx = drive_held(
         lambda: triples(ac_c.find_overlapping_iter(hay_c)),
@@ -1534,7 +1535,7 @@ def main() -> int:
         lambda: triples(ac_s.find_overlapping_iter(hay_s)),
         ("G6", "G2", "G1") + s_stages, only=s_stages)
     check("dict100k + LONG find_overlapping_iter", got_s, truth_s)
-    cas_s = ac_s._cascade
+    cas_s = ac_s._engines.get("cascade")
     assert cas_s is not None and cas_s.side is not None
     assert cas_s.long_pids.tolist() == [len(dict100k)]
     n_long = sum(1 for t in got_s if t[0] == len(dict100k))
@@ -1554,7 +1555,7 @@ def main() -> int:
         ("G5",) + n_stages, only=n_stages)
     check("no-pad cascade find_overlapping_iter 4 MiB", got_n,
           overlapping_order(pats_n, truth_n))
-    cas_n = ac_n._cascade
+    cas_n = ac_n._engines.get("cascade")
     assert cas_n is not None and cas_n.pad_byte is None
     ph_n = cas_n.prepare(hay_n)
     assert not ph_n.baked
@@ -1586,14 +1587,14 @@ def main() -> int:
         lambda: triples(ac_w.find_overlapping_iter(hay_d)), ("W1",),
         only=("W1",))
     check("dfa-scan find_overlapping_iter 64 MiB", got_w, truth_d)
-    walk = ac_w._dev_automaton
+    walk = ac_w._engines["device_walk"]
     assert walk is not None
     _, _, walk_L, walk_H = walk._prepare(b"x" * len(hay_d))
     ac_w5 = AhoCorasick(names, device=dev, engine="dfa-scan")
     (got, cw5), hw5 = drive_held(lambda: ac_w5.count_matches(hay64),
                                  ("W2",), only=("W2",))
     check("dfa-scan count, five names, 64 MiB", got, len(truth64))
-    walk5 = ac_w5._dev_automaton
+    walk5 = ac_w5._engines["device_walk"]
     walk_plan_5 = WK.count_shape
     if not walk_plan_5[4]:
         raise AssertionError(f"the five names' table "
@@ -1620,7 +1621,7 @@ def main() -> int:
         lambda: triples(ac_h.find_overlapping_iter(hay_h)), ("W1",),
         only=("W1",))
     check("dfa-scan find_overlapping_iter, halo > block", got, truth_h)
-    _, _, hl, hh = ac_h._dev_automaton._prepare(hay_h)
+    _, _, hl, hh = ac_h._engines["device_walk"]._prepare(hay_h)
     assert hh > hl and len(truth_h) == len(hay_h) - 199
     ac_o = AhoCorasick(dict1k, ascii_case_insensitive=True, device=dev,
                        engine="device-only")
@@ -1631,7 +1632,8 @@ def main() -> int:
         lambda: triples(ac_o.find_overlapping_iter(hay_d)),
         ("G6",) + FP_STAGES, only=FP_STAGES)
     check("device-only find_overlapping_iter 64 MiB", got_o, truth_d)
-    assert ac_o._fp is not None and ac_o._dev_automaton is None
+    assert ac_o._engines.get("fingerprint") is not None
+    assert ac_o._engines.get("device_walk") is None
     log(f"[device walk] dict1k engine='dfa-scan', {len(hay_d)} B: count (W2) "
         f"and find_overlapping_iter (W1) = native ({walk.num_states} states "
         f"x {walk.alphabet_len} classes, JAX layout blocks of {walk_L} B + a "
@@ -1992,8 +1994,8 @@ def main() -> int:
     ]
 
     # The 64 MiB count of the 128-word set (K = 103), RUNS times, each run
-    # beside a whole count_matches call: the host pack (BitapEngine._pack,
-    # padded with the pad byte), the pageable upload, the stream-major
+    # beside a whole count_matches call: the host pack (bitap.stage to the
+    # CPU, padded with the pad byte), the pageable upload, the stream-major
     # layout and G2 with the sum, each ended by a synchronise.
     wparts = {k: [] for k in ("count_matches", "sum_of_parts", "pack",
                               "upload", "layout", "G2_and_sum")}
@@ -2002,8 +2004,8 @@ def main() -> int:
         wparts["count_matches"].append(
             host_ms(lambda: ac_k103.count_matches(hay_k103)))
         t0 = time.perf_counter()
-        x32 = torch.from_numpy(eng_k103._pack(
-            hay_k103, L_w, tiles_w, pad=eng_k103.tables.pad_byte))
+        x32 = TB.stage(hay_k103, tiles_w * TB.LANES * L_w,
+                       eng_k103.tables.pad_byte, "cpu")
         t1 = time.perf_counter()
         xd = x32.to(dev)
         torch.cuda.synchronize()
@@ -2037,7 +2039,7 @@ def main() -> int:
     # synchronise and read on the host clock, so the parts add up to their
     # sum.
     def staged_parts(name, acs, hay, truth):
-        stp = acs._staged
+        stp = acs._engines["staged"]
         (qlo, qhi, qsm, qem), (rlo, rhi, rsm, rem) = stp._args()
         L_p, _, tiles_p = stp._layout(len(hay))
         nsp = tiles_p * 1024
@@ -2404,9 +2406,10 @@ def main() -> int:
             def mark():
                 torch.cuda.synchronize()
                 marks.append(time.perf_counter())
-            buf, _, L_w, halo_w = TBS.pack_haystack(hay_d, walk.halo)
+            total_w, L_w, halo_w = TBS.walk_layout(len(hay_d), walk.halo)
+            buf = TB.stage(hay_d, total_w, 0, "cpu").view(torch.uint8)
             mark()
-            buf_t = torch.from_numpy(buf).to(dev)
+            buf_t = buf.to(dev)
             mark()
             wa = (walk.trans_flat, walk.classes, buf_t, walk.alphabet_len,
                   walk.start_id, L_w, halo_w)

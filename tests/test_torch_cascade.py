@@ -361,7 +361,7 @@ def test_facade_cascade_forced_and_semantics():
         ref = T.AhoCorasick(pats, match_kind=mk, engine="oracle",
                             device="cpu")
         assert _triples(ac.find_iter(hay)) == _triples(ref.find_iter(hay))
-        assert ac._cascade is not None
+        assert ac._engines.get("cascade") is not None
 
 
 def test_facade_auto_routes_large_sets_to_cascade(spy):
@@ -373,7 +373,7 @@ def test_facade_auto_routes_large_sets_to_cascade(spy):
     ac = T.AhoCorasick(pats, device_threshold=1, device="cpu")
     want_p, _ = brute_pairs(pats, hay)
     assert ac.count_matches(hay) == len(want_p)
-    assert ac._cascade is not None and not ac._cascade.hostile
+    assert not ac._engines["cascade"].hostile
     assert spy == [("CascadeEngine", "count_matches")]
 
 
@@ -488,14 +488,16 @@ def test_hostile_cascade_falls_back_to_fingerprint_then_native(
     tac = T.AhoCorasick(pats, device_threshold=1, device="cpu")
     want = brute_pairs(pats, hostile)[0].size
     assert tac.count_matches(hostile) == want
-    assert tac._cascade.hostile and not tac._fp.hostile
+    assert tac._engines["cascade"].hostile
+    assert not tac._engines["fingerprint"].hostile
     assert spy == [("CascadeEngine", "count_matches"),
                    ("FingerprintEngine", "count_matches")]
     monkeypatch.setattr(TF, "CAND_FLOOR", 64)
     monkeypatch.setattr(JF, "CAND_FLOOR", 64)
     spy.clear()
     got = _triples(tac.find_overlapping_iter(hostile))
-    assert tac._fp.hostile and spy == [("FingerprintEngine", "match_pairs")]
+    assert tac._engines["fingerprint"].hostile
+    assert spy == [("FingerprintEngine", "match_pairs")]
     jac = J.AhoCorasick(pats, device_threshold=1)
     assert got == _triples(jac.find_overlapping_iter(J.Input(hostile)))
     spy.clear()
@@ -516,7 +518,8 @@ def test_ineligible_fingerprint_set_takes_cascade(monkeypatch, spy):
     assert tac.count_matches(hay) == len(want[0]) > 50
     got = [(m.pattern, m.end) for m in tac.find_overlapping_iter(hay)]
     assert got == list(zip(want[0].tolist(), want[1].tolist()))
-    assert tac._fp is None and tac._cascade is not None
+    assert tac._engines["fingerprint"] is None
+    assert tac._engines["cascade"] is not None
     assert spy == [("CascadeEngine", "count_matches"),
                    ("CascadeEngine", "match_pairs")]
 
@@ -532,7 +535,7 @@ def test_coarse_bitmap_launches_nothing_on_the_cpu(baked):
     ph = eng.prepare(hay)
     assert ph.baked == baked
     coarse = eng.tables.device_tensors(torch.device("cpu"))["coarse"]
-    got = eng._bitmap(ph, coarse)
+    got = TF.bitmap(coarse, ph)
     want = FK.fp_bitmap_plain(*coarse, ph.halo_a, ph.body,
                               None if baked else (0, ph.n))
     for g, w in zip(got, want):

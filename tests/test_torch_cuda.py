@@ -397,8 +397,8 @@ def test_limb_groups_in_waves(dev, K, kernel):
     n = tiles * 1024 * L - 9
     hay = _hay(n, K, pats)
     pad = (eng.tables.pad_byte or 0) if kernel == "G2" else 0
-    x32 = torch.from_numpy(eng._pack(hay, L, tiles, pad=pad))
-    halo, body = TB._to_stream_major(x32.to(dev), L, tiles, eng.halo)
+    x32 = TB.stage(hay, tiles * 1024 * L, pad, dev)
+    halo, body = TB._to_stream_major(x32, L, tiles, eng.halo)
     assert TK.scan_plan(L, eng.halo, tiles * 1024, K,
                         TK.resident_threads(dev))[:3] == (1, L, G)
     lo, hi, sm, em = eng._args()
@@ -659,7 +659,7 @@ def test_cascade_coarse_bitmap_equals_plain(dev, name):
     assert ph.baked == (kernel == "G6")
     coarse = eng.tables.device_tensors(dev)["coarse"]
     FK.reset_counts()
-    got = eng._bitmap(ph, coarse)
+    got = TF.bitmap(coarse, ph)
     assert (FK.baked_launches, FK.generic_launches) == (
         (1, 0) if kernel == "G6" else (0, 1))
     _same(got, FK.fp_bitmap_plain(*coarse, ph.halo_a, ph.body,
@@ -752,8 +752,8 @@ def test_four_entry_mesh_equals_cpu_mesh(dev):
     st = {m: TS.StagedEngine(NAMES, False, d) for m, d in on}
     launched = reset()
     assert both(lambda m: SH.sharded_bitap_count(
-        ac[m]._bitap_engine(), hay, m)) > 40
-    both(lambda m: SH.sharded_bitap_match_pairs(ac[m]._bitap_engine(),
+        ac[m]._engine("bitap"), hay, m)) > 40
+    both(lambda m: SH.sharded_bitap_match_pairs(ac[m]._engine("bitap"),
                                                 hay, m))
     both(lambda m: SH.sharded_staged_count(st[m], hay, m))
     assert launched() == (8, 4, 4, 0, 0)
@@ -849,7 +849,7 @@ def _fp_stage_inputs(dev, pats, ci, n, seed):
     assert eng.dv is not None
     hay = _dict_text(pats, n, seed)
     ph = eng.prepare(hay)
-    _, bmp = eng.bitmap(ph)
+    _, bmp = TF.bitmap(eng._args(), ph)
     return eng, ph, bmp
 
 
@@ -894,7 +894,7 @@ def test_cascade_probe_and_long_verify_equal_plain(dev):
     t = eng.tables
     assert TC.LONG in t.classes
     dv = t.device_tensors(dev)
-    _, bmp = eng._bitmap(ph, dv["coarse"])
+    _, bmp = TF.bitmap(dv["coarse"], ph)
     ncand, e_pos, live = CK.cand_select(bmp, ph.L, 1 << 17)
     assert 0 < int(ncand) <= 1 << 17
     for extract in (False, True):
@@ -1072,12 +1072,12 @@ def test_sharded_walk_count_launches_w2_per_shard(dev):
 
     pats = _cascade_names(600)
     hay = _hay(1 << 20, 23, pats)
-    card = AhoCorasick(pats, device=dev)._device_automaton()
+    card = AhoCorasick(pats, device=dev)._engine("device_walk")
     cpu = AhoCorasick(pats, device="cpu")
     WK.reset_counts()
     got = SH.sharded_count_matches(card, hay, SH.Mesh([dev] * 4))
     assert WK.count_launches == 4
-    assert got == SH.sharded_count_matches(cpu._device_automaton(), hay,
+    assert got == SH.sharded_count_matches(cpu._engine("device_walk"), hay,
                                            SH.Mesh(["cpu"] * 4))
     assert got == cpu.count_matches(hay) > 40
 

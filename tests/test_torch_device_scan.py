@@ -171,7 +171,7 @@ def test_forced_walk_equals_jax_facade(mode, monkeypatch):
         J.Input(hay)))
     assert calls == [len(hay)]
     assert tac.count_matches(hay) == jac.count_matches(J.Input(hay))
-    assert tac._dev_automaton is not None
+    assert tac._engines["device_walk"] is not None
 
 
 def test_without_native_walk_the_device_walk_serves(monkeypatch):
@@ -186,16 +186,16 @@ def test_without_native_walk_the_device_walk_serves(monkeypatch):
     hay = b"ushers she said, he hers " * 200
     tac = T.AhoCorasick(pats, device_threshold=1024, device="cpu")
     oracle = T.AhoCorasick(pats, engine="oracle", device="cpu")
-    assert tac._bitap_engine() is None
+    assert tac._engine("bitap") is None
     assert _triples(tac.find_overlapping_iter(hay)) == _triples(
         oracle.find_overlapping_iter(hay))
     assert tac.count_matches(hay) == len(_triples(
         oracle.find_overlapping_iter(hay)))
-    assert tac._dev_automaton is not None
+    assert tac._engines["device_walk"] is not None
     # Below the threshold the host scalar walk serves.
     small = T.AhoCorasick(pats, device_threshold=1 << 20, device="cpu")
     assert _triples(small.find_iter(hay)) == _triples(oracle.find_iter(hay))
-    assert small._dev_automaton is None
+    assert "device_walk" not in small._engines
 
 
 def test_device_only_takes_the_filter_engines_first():
@@ -207,8 +207,9 @@ def test_device_only_takes_the_filter_engines_first():
     hay = rng.choice(list(b"abcdefghij "), 20_000).astype(np.uint8).tobytes()
     tac = T.AhoCorasick(pats, engine="device-only", device="cpu")
     oracle = T.AhoCorasick(pats, engine="oracle", device="cpu")
-    assert tac._bitap_engine() is None
+    assert tac._engine("bitap") is None
     assert tac.count_matches(hay) == len(_triples(
         oracle.find_overlapping_iter(hay)))
-    assert tac._fp is not None and tac._dev_automaton is None
+    assert tac._engines["fingerprint"] is not None
+    assert "device_walk" not in tac._engines
     assert torch.device("cpu") == tac.device()

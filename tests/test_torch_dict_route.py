@@ -97,7 +97,8 @@ def test_sample_route_answers_and_counters(monkeypatch):
         assert rec["served.fingerprint_host"] == 1
         assert "declined.fingerprint" not in rec
         assert rec["#pass.verify"] == 1 and rec["candidates"] > 0
-    assert ac._cascade.hostile and ac._fp.dv is None
+    assert ac._engines["cascade"].hostile
+    assert ac._engines["fingerprint"].dv is None
     got = [m.astuple() for m in ac.find_overlapping_iter(hay)]
     assert got == [m.astuple() for m in ref.find_overlapping_iter(hay)]
     got = [m.astuple() for m in ac.find_iter(hay)]

@@ -179,7 +179,7 @@ def test_seeded_against_jax_facade(seed):
                             engine="bitap", device_threshold=0)
         tac = AhoCorasick(pats, match_kind=mk, ascii_case_insensitive=ci,
                           engine="bitap", device_threshold=0)
-        assert tac._bitap_engine() is not None
+        assert tac._engine("bitap") is not None
         assert triples(tac.find_iter(Input(hay))) == triples(
             jac.find_iter(J.Input(hay))), (pats, hay[:40], mk, ci)
         if mk.is_standard():
@@ -199,7 +199,7 @@ def test_ineligible_set_against_jax_facade():
     hay = b"abba cab " * 30
     jac = J.AhoCorasick(pats)
     tac = AhoCorasick(pats)
-    assert tac._bitap_engine() is None
+    assert tac._engine("bitap") is None
     assert triples(tac.find_iter(Input(hay))) == triples(
         jac.find_iter(J.Input(hay)))
     assert tac.count_matches(Input(hay)) == jac.count_matches(J.Input(hay))
@@ -234,8 +234,10 @@ def test_forced_engines_equal_jax_facade(mode, kind):
             jac.find_overlapping_iter(J.Input(hay)))
         assert tac.count_matches(Input(hay)) == jac.count_matches(
             J.Input(hay))
-    served = {"cascade": tac._cascade, "dfa-scan": tac._dev_automaton,
-              "device-only": tac._fp if tac._bitap is None else tac._bitap}
+    built = tac._engines
+    served = {"cascade": built.get("cascade"),
+              "dfa-scan": built.get("device_walk"),
+              "device-only": built.get("bitap") or built.get("fingerprint")}
     assert served[mode] is not None
     assert AhoCorasickBuilder(device="cpu").engine(mode)._engine == mode
 
@@ -252,15 +254,15 @@ def test_forced_fingerprint_against_jax_facade(kind):
     jac = J.AhoCorasick(pats, engine="fingerprint",
                         match_kind=J.MatchKind(kind.value))
     tac = AhoCorasick(pats, engine="fingerprint", match_kind=kind)
-    assert tac._bitap_engine() is None
     assert triples(tac.find_iter(Input(hay))) == triples(
         jac.find_iter(J.Input(hay)))
-    assert tac._fp is not None
+    assert tac._engines.get("fingerprint") is not None
     if kind.is_standard():
         assert triples(tac.find_overlapping_iter(Input(hay))) == triples(
             jac.find_overlapping_iter(J.Input(hay)))
         assert tac.count_matches(Input(hay)) == jac.count_matches(
             J.Input(hay)) > 50
+    assert "bitap" not in tac._engines
 
 
 def test_unknown_engine_and_device():
@@ -288,7 +290,7 @@ def test_large_haystack_routes_to_pad_byte_kernel(monkeypatch):
     pats = ["Sherlock Holmes", "John Watson", "Holmes"]
     hay = ("x Sherlock Holmes met John Watson. " * 200).encode()
     ac = AhoCorasick(pats)
-    eng = ac._bitap_engine()
+    eng = ac._engine("bitap")
     assert eng._use_baked(len(hay)) and eng.prepare(hay).baked
     truth = AhoCorasick(pats, engine="oracle")
     assert triples(ac.find_overlapping_iter(hay)) == triples(

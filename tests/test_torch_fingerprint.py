@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import ahocorasick_tpu.ops.fingerprint as JF
+import ahocorasick_tpu_torch.ops.bitap as TB
 import ahocorasick_tpu_torch.ops.fingerprint as TF
 from ahocorasick_tpu_torch.ops import candidate_kernels as CK
 from ahocorasick_tpu_torch.ops import fingerprint_kernels as FK
@@ -229,7 +230,8 @@ def test_windows_equal_jax(fold):
     total = ph.tiles * 1024 * ph.L
     e_pos = torch.cat([pos[live], torch.tensor(
         [0, 1, 7, 8, len(hay) - 1, len(hay), total - 1])])
-    buf = te._pack(hay, ph.L, ph.tiles, te.pad_byte or 0)
+    buf = TB.stage(hay, ph.tiles * TB.LANES * ph.L, te.pad_byte or 0,
+                   "cpu").numpy()
     got = CK.gather_windows(TF._verify_buffer(torch.from_numpy(buf), W,
                                               fold), e_pos, W)
     want = JF._gather_windows(JF._unpack_fold(jnp.asarray(buf), W, fold),
@@ -251,7 +253,8 @@ def test_device_verify_equals_fused_jits(baked, extract):
     t, dv = je.tables, je.dv
     n = len(hay)
     cap_c, cap_m = 8192, 2048
-    buf = te._pack(hay, ph.L, ph.tiles, te.pad_byte or 0)
+    buf = TB.stage(hay, ph.tiles * TB.LANES * ph.L, te.pad_byte or 0,
+                   "cpu").numpy()
     u8f = JF._unpack_fold(jnp.asarray(buf), dv.W, True)
     halo, body = jnp.asarray(ph.halo_a.numpy()), jnp.asarray(ph.body.numpy())
     kw = dict(cap_c=cap_c, cap_m=cap_m) if extract else dict(cap_c=cap_c)

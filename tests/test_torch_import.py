@@ -38,7 +38,7 @@ def test_import_loads_no_jax():
         "assert [m.astuple() for m in s.find_iter(b'xabcd' * 900)][:1] == "
         "[(0, 1, 4)]\n"
         "ac = T.AhoCorasick(['ab', 'bc'], device='cpu')\n"
-        "assert shard.sharded_bitap_count(ac._bitap_engine(), b'xabc' * 600, "
+        "assert shard.sharded_bitap_count(ac._engine('bitap'), b'xabc' * 600, "
         "shard.make_mesh(4, 'cpu')) == 1200\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'ahocorasick_tpu' or "

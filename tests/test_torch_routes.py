@@ -93,7 +93,7 @@ def test_count_takes_staged(small_thresholds, spy):
     hay = _hay(L * 1024, 1, [p.encode() for p in NAMES])
     assert tac.count_matches(hay) == jac.count_matches(J.Input(hay)) > 0
     assert spy == [("StagedEngine", "count_matches")]
-    assert jac._staged is not None and tac._staged is not None
+    assert jac._staged is not None and tac._engines["staged"] is not None
 
 
 def test_count_below_staged_min_takes_bitap(small_thresholds, spy):
@@ -128,8 +128,9 @@ def test_extraction_takes_fingerprint_fused(small_thresholds, spy, ci):
     assert _triples(tac.find_iter(T.Input(hay))) == _triples(
         jac.find_iter(J.Input(hay)))
     assert set(spy) == {("FingerprintEngine", "match_pairs")}
-    assert tac._fp.dv is not None and tac._fp.prepare(hay).baked
-    assert tac._fp._caps == jac._fp._caps
+    fp = tac._engines["fingerprint"]
+    assert fp.dv is not None and fp.prepare(hay).baked
+    assert fp._caps == jac._fp._caps
 
 
 def test_long_pattern_takes_staged_extract(small_thresholds, spy):
@@ -140,9 +141,9 @@ def test_long_pattern_takes_staged_extract(small_thresholds, spy):
     jac, tac = _both(pats)
     hay = _hay(L * 1024, 4, [p.encode() for p in pats], every=3001)
     assert len(_same_overlapping(jac, tac, hay)) > 50
-    assert tac._fp is not None and tac._fp.dv is None
+    assert tac._engines["fingerprint"].dv is None
     assert spy == [("StagedEngine", "match_pairs")]
-    assert tac._staged._cap_s == jac._staged._cap_s > 0
+    assert tac._engines["staged"]._cap_s == jac._staged._cap_s > 0
 
 
 def test_bitap_mode_skips_filter_extracts(small_thresholds, spy):
@@ -194,7 +195,7 @@ def test_hostile_fingerprint_falls_back_to_native_walk(monkeypatch, spy):
     hay = b"aaaaaaaa" * 512
     jac, tac = _both(pats, device_threshold=1024)
     assert tac.count_matches(hay) == jac.count_matches(J.Input(hay))
-    assert tac._fp.hostile and jac._fp.hostile
+    assert tac._engines["fingerprint"].hostile and jac._fp.hostile
     # Once hostile, the facade no longer offers the engine.
     _same_overlapping(jac, tac, hay)
     assert spy == [("FingerprintEngine", "count_matches")]
@@ -205,5 +206,5 @@ def test_forced_fingerprint_on_an_eligible_set(spy):
     hay = _hay(20_000, 9, [p.encode() for p in NAMES], every=501)
     _same_overlapping(jac, tac, hay)
     assert tac.count_matches(hay) == jac.count_matches(J.Input(hay))
-    assert tac._bitap_engine() is None
+    assert "bitap" not in tac._engines
     assert {c[0] for c in spy} == {"FingerprintEngine"}

@@ -100,7 +100,7 @@ def test_dfa_scan_searcher_roundtrip(tmp_path):
         jac.find_overlapping_iter(J.Input(hay)))
     assert tac.count_matches(T.Input(hay)) == jac.count_matches(
         J.Input(hay))
-    assert tac._dev_automaton is not None
+    assert tac._engines.get("device_walk") is not None
 
 
 def test_fingerprint_searcher_roundtrip(tmp_path):
@@ -116,8 +116,8 @@ def test_fingerprint_searcher_roundtrip(tmp_path):
         src.save(p)
         back = T.AhoCorasick.load(p, device="cpu")
         assert back._engine_mode == "fingerprint"
-        assert back._bitap_engine() is None
         assert triples(back.find_overlapping_iter(T.Input(hay))) == want
-        assert back._fp is not None
+        assert back._engines.get("fingerprint") is not None
+        assert "bitap" not in back._engines
     back = TS.from_arrays(TS.to_arrays(tac), device="cpu")
     assert back.count_matches(T.Input(hay)) == len(want)

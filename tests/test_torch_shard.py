@@ -160,7 +160,7 @@ def test_sharded_count_matches_small(ndev):
     random.seed(3)
     h = "".join(random.choice("abc") for _ in range(5000)).encode()
     ac = AhoCorasick(["ab", "babc", "c", "ccc"])
-    got = sharded_count_matches(ac._device_automaton(), h, cpu_mesh(ndev))
+    got = sharded_count_matches(ac._engine("device_walk"), h, cpu_mesh(ndev))
     assert got == total_overlapping(ac, h) == ac.count_matches(h)
 
 
@@ -172,7 +172,7 @@ def test_sharded_count_cross_shard_matches(ndev):
     ac = AhoCorasick(["xyxyxyxy"])
     want = total_overlapping(ac, h)
     assert want >= 7
-    assert sharded_count_matches(ac._device_automaton(), h,
+    assert sharded_count_matches(ac._engine("device_walk"), h,
                                  cpu_mesh(ndev)) == want
 
 
@@ -180,11 +180,11 @@ def test_sharded_count_cross_shard_matches(ndev):
 def test_sharded_count_empty_and_tiny(ndev):
     ac = AhoCorasick(["abc"])
     m = cpu_mesh(ndev)
-    assert sharded_count_matches(ac._device_automaton(), b"", m) == 0
-    assert sharded_count_matches(ac._device_automaton(), b"abc", m) == 1
+    assert sharded_count_matches(ac._engine("device_walk"), b"", m) == 0
+    assert sharded_count_matches(ac._engine("device_walk"), b"abc", m) == 1
     ace = AhoCorasick(["ab", ""])
     h = b"xxabyab"
-    assert (sharded_count_matches(ace._device_automaton(), h, m)
+    assert (sharded_count_matches(ace._engine("device_walk"), h, m)
             == ace.count_matches(h) == total_overlapping(ace, h))
 
 
@@ -217,7 +217,7 @@ def test_sharded_match_pairs(ndev):
     random.seed(11)
     h = "".join(random.choice("abcx") for _ in range(6000)).encode()
     ac = AhoCorasick(["ab", "babc", "c", "ccc", "abcabc"])
-    pids, ends = sharded_bitap_match_pairs(ac._bitap_engine(), h,
+    pids, ends = sharded_bitap_match_pairs(ac._engine("bitap"), h,
                                            cpu_mesh(ndev))
     assert list(zip(pids.tolist(), ends.tolist())) == pairs(ac, h)
 
@@ -226,7 +226,7 @@ def test_sharded_match_pairs(ndev):
 def test_sharded_match_pairs_cross_shard(ndev):
     h = straddled(b"xyxyxyxy", 40000)
     ac = AhoCorasick(["xyxyxyxy", "yx"])
-    pids, ends = sharded_bitap_match_pairs(ac._bitap_engine(), h,
+    pids, ends = sharded_bitap_match_pairs(ac._engine("bitap"), h,
                                            cpu_mesh(ndev))
     want = pairs(ac, h)
     assert list(zip(pids.tolist(), ends.tolist())) == want
@@ -333,7 +333,7 @@ def test_sharded_match_pairs_slabbed(monkeypatch):
         h[p:p + 6] = b"abcabc"
     h = bytes(h)
     ac = AhoCorasick(["ab", "babc", "abcabc"])
-    pids, ends = sharded_bitap_match_pairs(ac._bitap_engine(), h,
+    pids, ends = sharded_bitap_match_pairs(ac._engine("bitap"), h,
                                            cpu_mesh(8))
     assert list(zip(pids.tolist(), ends.tolist())) == pairs(ac, h)
 
@@ -436,7 +436,7 @@ def test_sharded_hostility_counts_owned_candidates(which, monkeypatch):
         eng = CascadeEngine(pats, False, "cpu")
         assert eng.pad_byte is not None  # G6, no position mask
         ph = eng.prepare(h)
-        _, bmp = eng._bitmap(ph, eng.tables.device_tensors("cpu")["coarse"])
+        _, bmp = F.bitmap(eng.tables.device_tensors("cpu")["coarse"], ph)
         ncand = F._rank_select(bmp, ph.L, 1)[0]
 
         def limit(lim):
@@ -506,7 +506,7 @@ def test_no_fill_byte_before_the_haystack(ndev):
     assert sharded_bitap_count(eng, h, m) == 1
     got = sharded_bitap_match_pairs(eng, h, m)
     assert list(zip(got[0].tolist(), got[1].tolist())) == want
-    assert sharded_count_matches(ac._device_automaton(), h, m) == 1
+    assert sharded_count_matches(ac._engine("device_walk"), h, m) == 1
 
 
 def test_r8_in_the_jax_module():
@@ -602,8 +602,8 @@ def test_dryrun_multichip_asserts(ndev):
     mesh = cpu_mesh(ndev)
     ac = AhoCorasick(FLAGSHIP, device_threshold=0)
     h = b"... Sherlock Holmes met John Watson ... " * 64
-    assert sharded_count_matches(ac._device_automaton(), h, mesh) == 128
-    eng = ac._bitap_engine()
+    assert sharded_count_matches(ac._engine("device_walk"), h, mesh) == 128
+    eng = ac._engine("bitap")
     assert eng is not None
     assert sharded_bitap_count(eng, h, mesh) == 128
     seng = StagedEngine(ac._patterns, False, "cpu")

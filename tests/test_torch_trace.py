@@ -105,15 +105,15 @@ def _packed_bytes(ac, route, n):
     """Bytes of the one buffer the route's engine packs and uploads."""
     kind = route.split(".")[0]
     if kind == "fingerprint":
-        L, _, tiles = ac._fp._layout(n)
+        L, _, tiles = ac._engines["fingerprint"]._layout(n)
     elif kind == "staged":
-        L, _, tiles = ac._staged._layout(n)
+        L, _, tiles = ac._engines["staged"]._layout(n)
     elif kind == "bitap":
-        L, tiles = ac._bitap._layout(n)
+        L, tiles = ac._engines["bitap"]._layout(n)
     elif kind == "cascade":
-        L, tiles = ac._cascade._layout(n)
+        L, tiles = ac._engines["cascade"]._layout(n)
     else:
-        return len(TBS.pack_haystack(b"\0" * n, ac._dev_automaton.halo)[0])
+        return TBS.walk_layout(n, ac._engines["device_walk"].halo)[0]
     return tiles * LANES * L
 
 
