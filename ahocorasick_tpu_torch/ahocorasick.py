@@ -50,7 +50,7 @@ from .utils import log
 from .automata.dfa import build_dfa
 from .automata.noncontiguous import compile_nfa, patterns_to_bytes
 from .ops.bitap import BitapEngine
-from .ops.block_scan import DeviceAutomaton
+from .ops.block_scan import DeviceWalkEngine
 from .ops.cascade import CascadeEngine
 from .ops.fingerprint import FingerprintEngine
 from .ops import staged as _staged
@@ -93,7 +93,7 @@ def _check_engine(mode: str) -> None:
 # The engines a searcher builds on demand (`AhoCorasick._engine`).
 _ENGINES = {"bitap": BitapEngine, "staged": StagedEngine,
            "fingerprint": FingerprintEngine, "cascade": CascadeEngine,
-           "device_walk": DeviceAutomaton}
+           "device_walk": DeviceWalkEngine}
 
 
 def _run_engine(ac, eng, op, hs, start):
@@ -199,17 +199,27 @@ def _cascade_follows(ac, n, tried):
     return not _cascade_leads(ac, n, tried) and "fingerprint" not in tried
 
 
-# The route of every unanchored search, in the JAX facade's order: each
-# call runs the first step that is open to it and does not decline (an
-# engine's None). Over a set the bit-parallel engine accepts, extraction
-# tries the fingerprint fused extract, the staged extract (from
+def _filter_found_dense(ac, n, tried):
+    """Whether a filter engine of this searcher found its input
+    candidate-dense (its sticky ``hostile`` flag)."""
+    return any(getattr(ac._engines.get(name), "hostile", False)
+               for name in ("cascade", "fingerprint"))
+
+
+# The route of every unanchored search, in the JAX facade's order but for
+# the device walk's count of candidate-dense inputs: each call runs the
+# first step that is open to it and does not decline (an engine's None).
+# Over a set the bit-parallel engine accepts, extraction tries the
+# fingerprint fused extract, the staged extract (from
 # STAGED_MIN bytes) and the single-pass extract; counts take the staged
 # and bit-parallel counts at any size, under every mode that leaves the
 # engine to them, `oracle` included. Larger sets go to the filter
 # engines: past CASCADE_MIN_PATTERNS patterns the cascade leads; below,
 # it is offered only where the fingerprint step was closed to the call.
-# The native walk serves what they decline, short extractions take the
-# host walk, and the device walk is the last resort and the forced
+# Counts that a filter engine found candidate-dense take the device walk
+# (W2, one pass over the bytes, cheaper than verifying the candidates); the
+# native walk serves the rest of what they decline, short extractions take
+# the host walk, and the device walk is the last resort and the forced
 # `dfa-scan` / `device-only` route. `engine="bitap"` over a set the
 # bit-parallel engine declines takes the native walk.
 _ROUTE = (
@@ -226,6 +236,8 @@ _ROUTE = (
           served=False),
     _Step("cascade", _BOTH, _FILTER_MODES + ("cascade",), "device",
           when=_cascade_follows, served=False),
+    _Step("device_walk", _COUNT, ("auto",), "device",
+          when=_filter_found_dense, run=_run_device_walk),
     _Step("native_walk", _BOTH, _NATIVE_MODES, run=_run_native_walk),
     _Step("host_walk", _EXTRACT, _NATIVE_MODES + ("dfa-scan",), "host",
           run=_run_host_walk),
@@ -419,7 +431,7 @@ class AhoCorasick:
             eng = None
             if self._eligible(name):
                 if name == "device_walk":
-                    eng = DeviceAutomaton(self._dfa, self._torch_device)
+                    eng = DeviceWalkEngine(self._dfa, self._torch_device)
                 else:
                     eng = _ENGINES[name](self._patterns,
                                         self._case_insensitive,

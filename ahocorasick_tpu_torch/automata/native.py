@@ -171,7 +171,7 @@ def dfa_count(dfa, haystack: bytes,
 def dfa_positions(dfa, haystack: bytes,
                   n_threads: Optional[int] = None):
     """Native scan emitting compacted (1-based end, state) match
-    positions, the host analog of DeviceAutomaton.match_positions —
+    positions, the host analog of DeviceWalkEngine.match_positions —
     sharded across host cores with halo warmup for large inputs.
     Returns None when the native library is unavailable."""
     lib = _load()

@@ -21,12 +21,13 @@ per-position states (``match_positions``, ``scan_states``), W2 sums the
 match counts inside the walk with no state array (``count_matches``); the
 kernels cut the buffer into finer sub-blocks than the JAX layout, which the
 suffix property allows. On the CPU the plain versions walk the JAX layout,
-one torch step per byte of a block. The walk is still not the production
-route: it serves the forced ``dfa-scan`` / ``device-only`` modes and the
-facade's last resort when the native walk is unavailable, and a gather per
-byte stays far below the filter engines (PERF.md: the dict1k 64 MiB count,
-its kernel against the fingerprint route's). Production traffic takes the
-bit-parallel, staged, fingerprint and cascade engines, or the native
+one torch step per byte of a block. The walk serves the counts of inputs
+that a filter engine (fingerprint or cascade) found candidate-dense, where
+its one pass over the bytes costs less than verifying the candidates, the
+forced ``dfa-scan`` / ``device-only`` modes and the facade's last resort.
+Where the filters keep their candidates sparse they stay far ahead of a
+gather per byte (PERF.md: the dict1k 64 MiB count, W2 against the
+fingerprint route's kernels); extractions of dense inputs take the native
 interleaved C++ walk (automata/native.py).
 
 The output is the full per-position state sequence, from which the
@@ -87,7 +88,7 @@ def scan_states_host(dfa: DenseDFA, haystack: bytes) -> np.ndarray:
 
     Returns the per-position states: ``out[i]`` is the state after
     consuming ``haystack[i]`` from the unanchored start state, the same
-    states as `DeviceAutomaton.scan_states`.
+    states as `DeviceWalkEngine.scan_states`.
     """
     classes = dfa.classes.astype(np.int64)
     trans = dfa.trans
@@ -101,7 +102,7 @@ def scan_states_host(dfa: DenseDFA, haystack: bytes) -> np.ndarray:
     return out
 
 
-class DeviceAutomaton:
+class DeviceWalkEngine:
     """Device-resident dense DFA tables + the blocked walk, on ``device``."""
 
     def __init__(self, dfa: DenseDFA, device="cuda"):
@@ -125,7 +126,7 @@ class DeviceAutomaton:
 
     # ------------------------------------------------------------------
     @log.spanned("prepare")
-    def _prepare(self, haystack: bytes):
+    def prepare(self, haystack: bytes):
         """Pad the haystack with zeros into a bucketed device buffer of
         bytes; returns (buf, n, block_len, halo)."""
         n = len(haystack)
@@ -134,7 +135,7 @@ class DeviceAutomaton:
         return buf, n, block_len, halo
 
     def _states(self, haystack: bytes) -> Tuple[torch.Tensor, int]:
-        buf, n, block_len, halo = self._prepare(haystack)
+        buf, n, block_len, halo = self.prepare(haystack)
         log.count("passes")
         states = WK.walk_states(self.trans_flat, self.classes, buf,
                                 self.alphabet_len, self.start_id, block_len,
@@ -182,7 +183,7 @@ class DeviceAutomaton:
                         - self.dfa.match_starts[self.start_id])
         if len(haystack) == 0:
             return extra
-        buf, n, block_len, halo = self._prepare(haystack)
+        buf, n, block_len, halo = self.prepare(haystack)
         log.count("passes")
         total = WK.walk_count(self.trans_flat, self.classes, buf,
                               self.alphabet_len, self.start_id, block_len,

@@ -28,7 +28,9 @@ order included, so both packages build the same tables.
 Plans adapt at run time: the engine starts at the cheapest filter level
 (``PLAN_LEVELS``) and escalates to finer buckets only when the measured
 candidate rate demands it; candidate-dense (hostile) inputs return None and
-the facade falls back to the native walk.
+the facade falls back to a walk. Where the set has no device verify, the
+host verify's own, lower limit marks an input hostile once verifying its
+candidates would cost more than the device walk's count of its bytes.
 
 The output is the complete overlapping (pattern, end) match set in the
 reference's report order, the contract of ``BitapEngine.match_pairs``.
@@ -66,9 +68,19 @@ K_TARGET = 16       # preferred limb budget (kernel cost is ~linear in K)
 K_MAX = 64          # absolute limb bound (beyond: host-walk fallback)
 # Candidate positions above max(CAND_FLOOR, n >> CAND_SHIFT) mark the
 # workload filter-hostile: verification would dominate, so the facade
-# falls back to the native walk for subsequent calls.
+# falls back to a walk for subsequent calls.
 CAND_FLOOR = 1 << 16
 CAND_SHIFT = 3
+# A set with no device verify checks every call's candidates on the host
+# (VerifyIndex): above max(HOST_CAND_FLOOR, n >> HOST_CAND_SHIFT) that
+# costs more than the device walk's whole count over the same n bytes, so
+# the input is hostile. Measured on the H100 over English-like prose and
+# 43,029 words (PERF.md): the verify takes 0.73-0.94 us a candidate, the
+# walk's count (staging, upload, W2) 0.40-0.80 ns a byte from 1 to 64
+# MiB, ~1,600 bytes a candidate (2**11), and 0.18-0.25 ms at 4-256 KiB,
+# the cost of ~300 candidates (the floor, 2**9).
+HOST_CAND_FLOOR = 1 << 9
+HOST_CAND_SHIFT = 11
 
 
 def _fold(p: bytes) -> bytes:
@@ -849,7 +861,12 @@ class FingerprintEngine:
         n = len(ph.hs)
         if n == 0:
             return np.zeros(0, np.int64)
-        limit = self._hostile_limit(n)
+        # The host verify's own limit where the set has no device verify;
+        # where it has one (a haystack under FP_DV_MIN), the device's, so
+        # that a short call does not shut the device verify out of every
+        # later call (``hostile`` is sticky).
+        limit = (max(HOST_CAND_FLOOR, n >> HOST_CAND_SHIFT) if self.dv is None
+                 else self._hostile_limit(n))
         esc = self._escalate_limit(n)
         cap = min(4096, max(512, _pow2(n >> 8)))
         while True:

@@ -54,7 +54,7 @@ from ..ops import staged as _staged
 from ..ops import staged_kernels as _sk
 from ..ops.bitap import LANES, _pow2, _to_stream_major, decode_match_words
 from ..ops import walk_kernels as _wk
-from ..ops.block_scan import DeviceAutomaton, _round_up, choose_block_len
+from ..ops.block_scan import DeviceWalkEngine, _round_up, choose_block_len
 from ..ops.compaction import select_matches, select_nonzero_words
 
 
@@ -128,13 +128,13 @@ def _psum(values: Sequence[torch.Tensor], mesh: Mesh) -> int:
                             for v in values]).sum().item())
 
 
-def _walk_tables(dev: DeviceAutomaton, device: torch.device):
+def _walk_tables(dev: DeviceWalkEngine, device: torch.device):
     return (dev.trans_flat.to(device), dev.classes.to(device),
             dev.match_count.to(device))
 
 
 def sharded_count_matches(
-    dev: DeviceAutomaton,
+    dev: DeviceWalkEngine,
     haystack: bytes,
     mesh: Optional[Mesh] = None,
 ) -> int:

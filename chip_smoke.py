@@ -1589,7 +1589,7 @@ def main() -> int:
     check("dfa-scan find_overlapping_iter 64 MiB", got_w, truth_d)
     walk = ac_w._engines["device_walk"]
     assert walk is not None
-    _, _, walk_L, walk_H = walk._prepare(b"x" * len(hay_d))
+    _, _, walk_L, walk_H = walk.prepare(b"x" * len(hay_d))
     ac_w5 = AhoCorasick(names, device=dev, engine="dfa-scan")
     (got, cw5), hw5 = drive_held(lambda: ac_w5.count_matches(hay64),
                                  ("W2",), only=("W2",))
@@ -1621,7 +1621,7 @@ def main() -> int:
         lambda: triples(ac_h.find_overlapping_iter(hay_h)), ("W1",),
         only=("W1",))
     check("dfa-scan find_overlapping_iter, halo > block", got, truth_h)
-    _, _, hl, hh = ac_h._engines["device_walk"]._prepare(hay_h)
+    _, _, hl, hh = ac_h._engines["device_walk"].prepare(hay_h)
     assert hh > hl and len(truth_h) == len(hay_h) - 199
     ac_o = AhoCorasick(dict1k, ascii_case_insensitive=True, device=dev,
                        engine="device-only")
@@ -2483,10 +2483,10 @@ def main() -> int:
             f"{per_call} launch per call; library: none | {card}")
         return r
 
-    buf_d, n_dw, L_dw, H_dw = walk._prepare(hay_d)
+    buf_d, n_dw, L_dw, H_dw = walk.prepare(hay_d)
     wa_d = (walk.trans_flat, walk.classes, buf_d, walk.alphabet_len,
             walk.start_id, L_dw, H_dw)
-    buf_5, n_5w, L_5w, H_5w = walk5._prepare(hay64)
+    buf_5, n_5w, L_5w, H_5w = walk5.prepare(hay64)
     wa_5 = (walk5.trans_flat, walk5.classes, buf_5, walk5.alphabet_len,
             walk5.start_id, L_5w, H_5w)
     rows.update({

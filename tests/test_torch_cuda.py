@@ -985,8 +985,8 @@ def _walk_case(dev, name):
     else:
         pats = NAMES if name == "names" else _cascade_names(600)
         hay = _hay(1 << 20, 21, pats)
-    da = TBS.DeviceAutomaton(AhoCorasick(pats, device="cpu")._dfa, dev)
-    buf, n, L, H = da._prepare(hay)
+    da = TBS.DeviceWalkEngine(AhoCorasick(pats, device="cpu")._dfa, dev)
+    buf, n, L, H = da.prepare(hay)
     return da, (da.trans_flat, da.classes, buf, da.alphabet_len, da.start_id,
                 L, H), n
 

@@ -1,6 +1,6 @@
 """The port's blocked device DFA walk held against the JAX package's.
 
-The port's `DeviceAutomaton` (its walk's plain versions, on the CPU) and
+The port's `DeviceWalkEngine` (its walk's plain versions, on the CPU) and
 the JAX jits `_scan_states_jit`, `_count_matches_jit` and
 `_compact_matches_jit` (pure ``jnp``, no Pallas) walk the same DFA over
 the same padded buffer; both are also held against
@@ -52,9 +52,9 @@ def _searchers(name):
 def test_walk_equals_jax_jits(name):
     pats, hay, jac, tac = _searchers(name)
     jda = JB.DeviceAutomaton(jac._dfa)
-    tda = TBS.DeviceAutomaton(tac._dfa, "cpu")
+    tda = TBS.DeviceWalkEngine(tac._dfa, "cpu")
     assert tda.halo == jda.halo and tda.alphabet_len == jda.alphabet_len
-    buf, n, block_len, halo = tda._prepare(hay)
+    buf, n, block_len, halo = tda.prepare(hay)
     jbuf, jn, jblock, jhalo = jda._prepare(hay)
     assert (n, block_len, halo) == (jn, jblock, jhalo)
     np.testing.assert_array_equal(buf.numpy(), jbuf)
@@ -94,7 +94,7 @@ def test_walk_equals_jax_jits(name):
 
 def test_empty_haystack():
     tac = T.AhoCorasick([b"", b"ab"], device="cpu")
-    tda = TBS.DeviceAutomaton(tac._dfa, "cpu")
+    tda = TBS.DeviceWalkEngine(tac._dfa, "cpu")
     assert tda.scan_states(b"").shape == (0,)
     assert tda.count_matches(b"") == 1  # the empty pattern at 0
     ends, sids = tda.match_positions(b"")
@@ -109,8 +109,8 @@ def test_halo_longer_than_a_block():
     pats = [b"a" * 200, b"ab", b"ba"]
     hay = (b"a" * 300 + b"ba") * 20
     tac = T.AhoCorasick(pats, device="cpu")
-    tda = TBS.DeviceAutomaton(tac._dfa, "cpu")
-    _, _, block_len, halo = tda._prepare(hay)
+    tda = TBS.DeviceWalkEngine(tac._dfa, "cpu")
+    _, _, block_len, halo = tda.prepare(hay)
     assert halo > block_len
     np.testing.assert_array_equal(tda.scan_states(hay),
                                   TBS.scan_states_host(tac._dfa, hay))
@@ -131,8 +131,8 @@ def test_halo_longer_than_a_block_fills_its_bucket(n):
     pats = [b"a" * 200, b"ab"]
     hay = b"a" * n
     tac = T.AhoCorasick(pats, device="cpu")
-    tda = TBS.DeviceAutomaton(tac._dfa, "cpu")
-    buf, _, block_len, halo = tda._prepare(hay)
+    tda = TBS.DeviceWalkEngine(tac._dfa, "cpu")
+    buf, _, block_len, halo = tda.prepare(hay)
     assert halo > block_len and len(buf) - n < halo
     host = TBS.scan_states_host(tac._dfa, hay)
     np.testing.assert_array_equal(tda.scan_states(hay), host)
@@ -159,8 +159,8 @@ def test_forced_walk_equals_jax_facade(mode, monkeypatch):
     """A set no filter engine takes (an empty pattern) under a forced
     device mode runs the device walk in both facades, from 0 bytes."""
     calls = []
-    orig = TBS.DeviceAutomaton.match_positions
-    monkeypatch.setattr(TBS.DeviceAutomaton, "match_positions",
+    orig = TBS.DeviceWalkEngine.match_positions
+    monkeypatch.setattr(TBS.DeviceWalkEngine, "match_positions",
                         lambda self, h: calls.append(len(h)) or orig(self, h))
     pats = [b"", b"ab", b"abc", b"cab"]
     hay = np.random.default_rng(9).choice(list(b"abc "), 3000).astype(

@@ -5,12 +5,14 @@ A dictionary of words of 10-17 letters under shared 8-letter prefixes
 (families; the first one of 20 words, more than the device verify's
 groups hold) over prose in which entries and near misses (a prefix and
 at most one letter, completing no entry) are dense enough that the
-cascade declines the input as hostile. On the CPU: 5,000 words over 256
-KiB, held against the JAX package's native walk, with the cascade's
-candidate floor lowered so that it declines this small haystack as it
-declines large ones. On the card (``cuda``): 43,029 words over 4 MiB,
-held against the port's native walk on the host, with no threshold
-lowered. The JAX package is imported by the CPU tests alone.
+cascade declines the input as hostile, and so does the fingerprint engine,
+whose candidates would verify on the host: the count takes the device
+DFA walk. On the CPU: 5,000 words over 256 KiB, held against the JAX
+package's native walk, with the cascade's and the host verify's candidate
+floors lowered so that they decline this small haystack as they decline
+large ones. On the card (``cuda``): 43,029 words over 4 MiB, held against
+the port's native walk on the host, with no threshold lowered. The JAX
+package is imported by the CPU tests alone.
 """
 
 import collections
@@ -20,6 +22,7 @@ import pytest
 
 import ahocorasick_tpu_torch as T
 from ahocorasick_tpu_torch.ops import cascade as TC
+from ahocorasick_tpu_torch.ops import fingerprint as TF
 from ahocorasick_tpu_torch.utils import log
 from torch_suite import per_test_time_limit  # noqa: F401
 
@@ -84,21 +87,27 @@ def test_sample_route_answers_and_counters(monkeypatch):
     hay = _prose(5, pats, 1 << 18)
     ref = J.AhoCorasick(pats, device_threshold=1 << 62)
     monkeypatch.setattr(TC, "CAND_FLOOR", 1 << 10)
+    monkeypatch.setattr(TF, "HOST_CAND_FLOOR", 1 << 10)
     ac = T.AhoCorasick(pats, device="cpu")
     (first, second), recs = _traced(
         lambda: (ac.count_matches(hay), ac.count_matches(hay)))
     assert first == second == ref.count_matches(hay) > 0
     # The cascade leads (over CASCADE_MIN_PATTERNS patterns) and declines
-    # the candidate-dense input; the fingerprint engine serves, its
-    # candidates verified on the host (a family of over 16 words keeps
-    # DeviceVerify out). Later calls skip the hostile cascade.
+    # the candidate-dense input; so does the fingerprint engine, whose
+    # candidates would verify on the host (a family of over 16 words keeps
+    # DeviceVerify out); the device walk counts. Later calls pass over
+    # both hostile engines.
     for rec in recs:
         assert rec["declined.cascade"] == 1
-        assert rec["served.fingerprint_host"] == 1
-        assert "declined.fingerprint" not in rec
-        assert rec["#pass.verify"] == 1 and rec["candidates"] > 0
+        assert rec["declined.fingerprint"] == 1
+        assert rec["served.device_walk"] == 1 and rec["passes"] >= 1
+        assert "pass.verify" not in rec
+        assert not [k for k in rec if k.startswith("served.fingerprint")]
+    assert recs[0]["candidates"] > TF.HOST_CAND_FLOOR
+    assert recs[1]["passes"] == 1 and "candidates" not in recs[1]
     assert ac._engines["cascade"].hostile
-    assert ac._engines["fingerprint"].dv is None
+    fp = ac._engines["fingerprint"]
+    assert fp.dv is None and fp.hostile
     got = [m.astuple() for m in ac.find_overlapping_iter(hay)]
     assert got == [m.astuple() for m in ref.find_overlapping_iter(hay)]
     got = [m.astuple() for m in ac.find_iter(hay)]
@@ -141,4 +150,7 @@ def test_whole_dictionary_on_the_card():
     assert got == [want] * 2 and want > 0
     for rec in recs:
         assert rec["declined.cascade"] == 1
-        assert rec["served.fingerprint_host"] == 1
+        assert rec["declined.fingerprint"] == 1
+        assert rec["served.device_walk"] == 1
+        assert "pass.verify" not in rec
+    assert recs[1]["passes"] == 1

@@ -1,8 +1,10 @@
 """The facade's whole route matrix, pinned as a table.
 
-Four pattern sets (one the bit-parallel engine accepts; the same with a
+Five pattern sets (one the bit-parallel engine accepts; the same with a
 pattern past the device verify's window and `STAGED_MIN` lowered; one of
 more than 2,048 pattern bytes; the same with `CASCADE_MIN_PATTERNS`
+lowered; the same with a family of 20 words under one 8-byte prefix, which
+keeps the device verify out, and the host verify's candidate floor
 lowered) are crossed with every `engine=` mode and a haystack below and
 above `device_threshold`. Each case runs `find_iter`, `count_matches` and
 `find_overlapping_iter` on one searcher, in that order, and pins the
@@ -38,12 +40,20 @@ def _dictionary(seed, count, lmin, lmax, letters):
 
 
 LARGE = _dictionary(7, 260, 6, 12, letters=16)
+# More words under one 8-byte prefix than a device verify group holds
+# (GMAX_CAP): the fingerprint engine verifies on the host.
+FAMILY = [b"cadebfag" + bytes([97 + i % 16]) * (1 + i // 16)
+          for i in range(20)]
+# Between the candidates of _hay (85 at 5,000 B) and of _dense (795).
+HOST_FLOOR = 256
 # set: (patterns, module settings lowered for it)
 SETS = {
     "bitap": (NAMES, {}),
     "staged": (NAMES + [LONG], {(TS, "STAGED_MIN"): 1024}),
     "large": (LARGE, {}),
     "cascade": (LARGE, {(TA, "CASCADE_MIN_PATTERNS"): 100}),
+    "nodv": (sorted(set(LARGE) | set(FAMILY)),
+             {(TF, "HOST_CAND_FLOOR"): HOST_FLOOR}),
 }
 SIZES = {"below": 1500, "above": 5000}  # device_threshold is 2048
 OPS = ("find_iter", "count_matches", "find_overlapping_iter")
@@ -212,6 +222,44 @@ MATRIX = {
         {}, {"served.native_walk": 1}, {}],
     ("large", "oracle", "below"): [
         {}, {"served.native_walk": 1}, {}],
+    ("nodv", "auto", "above"): [
+        {"served.fingerprint_host": 1}, {"served.fingerprint_host": 1},
+        {"served.fingerprint_host": 1}],
+    ("nodv", "auto", "below"): [
+        {"served.native_walk": 1}, {"served.native_walk": 1},
+        {"served.native_walk": 1}],
+    ("nodv", "bitap", "above"): [
+        {"served.native_walk": 1}, {"served.native_walk": 1},
+        {"served.native_walk": 1}],
+    ("nodv", "bitap", "below"): [
+        {"served.native_walk": 1}, {"served.native_walk": 1},
+        {"served.native_walk": 1}],
+    ("nodv", "cascade", "above"): [
+        {"served.cascade": 1}, {"served.cascade": 1}, {"served.cascade": 1}],
+    ("nodv", "cascade", "below"): [
+        {"served.cascade": 1}, {"served.cascade": 1}, {"served.cascade": 1}],
+    ("nodv", "device-only", "above"): [
+        {"served.fingerprint_host": 1}, {"served.fingerprint_host": 1},
+        {"served.fingerprint_host": 1}],
+    ("nodv", "device-only", "below"): [
+        {"served.device_walk": 1}, {"served.device_walk": 1},
+        {"served.device_walk": 1}],
+    ("nodv", "dfa-scan", "above"): [
+        {"served.device_walk": 1}, {"served.device_walk": 1},
+        {"served.device_walk": 1}],
+    ("nodv", "dfa-scan", "below"): [
+        {"served.host_walk": 1}, {"served.device_walk": 1},
+        {"served.host_walk": 1}],
+    ("nodv", "fingerprint", "above"): [
+        {"served.fingerprint_host": 1}, {"served.fingerprint_host": 1},
+        {"served.fingerprint_host": 1}],
+    ("nodv", "fingerprint", "below"): [
+        {"served.fingerprint_host": 1}, {"served.fingerprint_host": 1},
+        {"served.fingerprint_host": 1}],
+    ("nodv", "oracle", "above"): [
+        {}, {"served.native_walk": 1}, {}],
+    ("nodv", "oracle", "below"): [
+        {}, {"served.native_walk": 1}, {}],
     ("staged", "auto", "above"): [
         {"served.staged": 1}, {"served.staged": 1}, {"served.staged": 1}],
     ("staged", "auto", "below"): [
@@ -266,20 +314,23 @@ def test_route_matrix(name, mode, size, monkeypatch):
 
 # (set, engine mode, hostile): the counters of each call of DENSE_CALLS on
 # one searcher over a candidate-dense haystack, with the hostile limit of
-# the fingerprint engine, the cascade or both lowered.
+# the fingerprint engine, the cascade or both lowered (the "nodv" set's
+# fingerprint engine declines by the host verify's limit in each). Under
+# `auto`, counts that a filter engine found dense take the device walk,
+# extractions the native walk.
 DENSE_CALLS = ("count_matches", "count_matches", "find_overlapping_iter",
                "count_matches")
 HOSTILE = {"fingerprint": (TF,), "cascade": (TC,), "both": (TF, TC)}
 DENSE = {
     ("cascade", "auto", "both"): [
         {"declined.cascade": 1, "declined.fingerprint": 1,
-         "served.native_walk": 1},
+         "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1},
         {"declined.fingerprint": 1, "declined.cascade": 1,
          "served.native_walk": 1},
         {"declined.fingerprint": 1, "declined.cascade": 1,
-         "served.native_walk": 1},
-        {"declined.fingerprint": 1, "declined.cascade": 1,
-         "served.native_walk": 1}],
+         "served.device_walk": 1}],
     ("cascade", "auto", "cascade"): [
         {"declined.cascade": 1, "served.fingerprint_host": 1},
         {"declined.cascade": 1, "served.fingerprint_host": 1},
@@ -306,18 +357,18 @@ DENSE = {
         {"served.cascade": 1}, {"served.cascade": 1}, {"served.cascade": 1},
         {"served.cascade": 1}],
     ("large", "auto", "both"): [
-        {"declined.fingerprint": 1, "served.native_walk": 1},
+        {"declined.fingerprint": 1, "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1},
         {"declined.fingerprint": 1, "declined.cascade": 1,
          "served.native_walk": 1},
         {"declined.fingerprint": 1, "declined.cascade": 1,
-         "served.native_walk": 1},
-        {"declined.fingerprint": 1, "declined.cascade": 1,
-         "served.native_walk": 1}],
+         "served.device_walk": 1}],
     ("large", "auto", "cascade"): [
         {"served.fingerprint_host": 1}, {"served.fingerprint_host": 1},
         {"served.fingerprint_host": 1}, {"served.fingerprint_host": 1}],
     ("large", "auto", "fingerprint"): [
-        {"declined.fingerprint": 1, "served.native_walk": 1},
+        {"declined.fingerprint": 1, "served.device_walk": 1},
         {"declined.fingerprint": 1, "served.cascade": 1},
         {"declined.fingerprint": 1, "served.cascade": 1},
         {"declined.fingerprint": 1, "served.cascade": 1}],
@@ -337,12 +388,54 @@ DENSE = {
         {"declined.fingerprint": 1, "served.cascade": 1},
         {"declined.fingerprint": 1, "served.cascade": 1},
         {"declined.fingerprint": 1, "served.cascade": 1}],
+    ("nodv", "auto", "both"): [
+        {"declined.fingerprint": 1, "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.native_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1}],
+    ("nodv", "auto", "cascade"): [
+        {"declined.fingerprint": 1, "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.native_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1}],
+    ("nodv", "auto", "fingerprint"): [
+        {"declined.fingerprint": 1, "served.device_walk": 1},
+        {"declined.fingerprint": 1, "served.cascade": 1},
+        {"declined.fingerprint": 1, "served.cascade": 1},
+        {"declined.fingerprint": 1, "served.cascade": 1}],
+    ("nodv", "device-only", "both"): [
+        {"declined.fingerprint": 1, "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1}],
+    ("nodv", "device-only", "cascade"): [
+        {"declined.fingerprint": 1, "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1},
+        {"declined.fingerprint": 1, "declined.cascade": 1,
+         "served.device_walk": 1}],
+    ("nodv", "device-only", "fingerprint"): [
+        {"declined.fingerprint": 1, "served.device_walk": 1},
+        {"declined.fingerprint": 1, "served.cascade": 1},
+        {"declined.fingerprint": 1, "served.cascade": 1},
+        {"declined.fingerprint": 1, "served.cascade": 1}],
 }
 
 
 @pytest.mark.parametrize("hostile", sorted(HOSTILE))
 @pytest.mark.parametrize("mode", ["auto", "device-only"])
-@pytest.mark.parametrize("name", ["large", "cascade"])
+@pytest.mark.parametrize("name", ["large", "cascade", "nodv"])
 def test_declined_fallbacks(name, mode, hostile, monkeypatch):
     pats = _lower(monkeypatch, name)
     for mod in HOSTILE[hostile]:
@@ -355,3 +448,22 @@ def test_declined_fallbacks(name, mode, hostile, monkeypatch):
         assert got == _want(pats, op, hay), op
         routes.append(counters)
     assert routes == DENSE[name, mode, hostile]
+
+
+@pytest.mark.parametrize("op", DENSE_CALLS[1:3])
+def test_device_verify_set_keeps_its_limit_below_dv_min(op, monkeypatch):
+    """A set with a device verify verifies a haystack under FP_DV_MIN on
+    the host, under the device verify's limit and not the host verify's
+    (lowered here past the dense haystack's candidates): the call is
+    served, and no later large call loses the device verify."""
+    pats = _lower(monkeypatch, "large")
+    monkeypatch.setattr(TF, "HOST_CAND_FLOOR", HOST_FLOOR)
+    hay = _dense(pats)
+    assert len(hay) < TF.FP_DV_MIN
+    ac = T.AhoCorasick(pats, device="cpu")
+    got, counters = _routed(ac, op, hay)
+    assert got == _want(pats, op, hay)
+    assert counters == {"served.fingerprint_host": 1}
+    fp = ac._engines["fingerprint"]
+    assert fp.dv is not None and not fp.hostile
+    assert len(fp.candidates(hay)) > HOST_FLOOR

@@ -51,7 +51,7 @@ def _case(name):
     hay = np.random.default_rng(len(name)).choice(list(alpha), n).astype(
         np.uint8).tobytes()
     tac = T.AhoCorasick(pats, byte_classes=bc, device="cpu")
-    tda = TBS.DeviceAutomaton(tac._dfa, "cpu")
+    tda = TBS.DeviceWalkEngine(tac._dfa, "cpu")
     return pats, bc, hay, tac, tda
 
 
@@ -64,7 +64,7 @@ def _args(tda, buf, block_len, halo):
 def test_plain_walks_equal_jax_jits(name):
     pats, bc, hay, tac, tda = _case(name)
     jda = JB.DeviceAutomaton(J.AhoCorasick(pats, byte_classes=bc)._dfa)
-    buf, n, block_len, halo = tda._prepare(hay)
+    buf, n, block_len, halo = tda.prepare(hay)
     a = _args(tda, buf, block_len, halo)
     states = WK.walk_states_plain(*a)
     jbuf = jnp.asarray(buf.numpy())
@@ -120,7 +120,7 @@ def test_walk_plan_equals_the_jax_layout(name):
     the same states, and the same counts over the whole haystack and over
     a window, also with a halo longer than a block."""
     _, _, hay, tac, tda = _case(name)
-    buf, n, block_len, halo = tda._prepare(hay)
+    buf, n, block_len, halo = tda.prepare(hay)
     sub = WK.walk_plan(len(buf), halo)
     assert sub >= max(16, 8 * halo) and sub & (sub - 1) == 0
     jax_layout = _args(tda, buf, block_len, halo)
@@ -141,7 +141,7 @@ def test_halo_over_block_equals_host_walk():
     buffer's start, on a haystack that fills its bucket too."""
     _, _, hay, tac, tda = _case("halo_over_block")
     for h in (hay, b"a" * 4096):
-        buf, n, block_len, halo = tda._prepare(h)
+        buf, n, block_len, halo = tda.prepare(h)
         assert halo > block_len
         a = _args(tda, buf, block_len, halo)
         host = TBS.scan_states_host(tac._dfa, h)
@@ -165,7 +165,7 @@ def test_walk_plan():
 
 def test_wrappers_check_their_arguments():
     _, _, hay, _, tda = _case("odd_lengths")
-    buf, n, block_len, halo = tda._prepare(hay)
+    buf, n, block_len, halo = tda.prepare(hay)
     a = _args(tda, buf, block_len, halo)
     with pytest.raises(TypeError):
         WK.walk_states(tda.trans_flat.long(), *a[1:])
